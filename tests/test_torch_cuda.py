@@ -1,0 +1,113 @@
+"""Hand-written CUDA kernels (K1-K5) against their plain PyTorch versions.
+
+These need a CUDA GPU and nvcc; without them each test skips (decided in
+the fixture, so every worker collects the same tests).  Run on the GPU
+with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
+(--noconftest skips tests/conftest.py, which imports jax; this file does not.)
+Tolerances: inside states and ob rtol 1e-4 (f32 summation order), pair
+probabilities atol 1e-5."""
+
+import numpy as np
+import pytest
+import torch
+
+from ractip_tpu.ops.seq import encode
+from ractip_tpu.params.tables import get_default_params
+from ractip_tpu_torch.ops import _cuda
+from ractip_tpu_torch.ops import cofold as tc
+from ractip_tpu_torch.ops import scan as ts
+from ractip_tpu_torch.ops.factors import co_factors, fold_factors
+from ractip_tpu_torch.params.boltz import sig_tables
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    _cuda.lib()
+    return torch.device("cuda")
+
+
+def _seqs(seed, B, L, nmin):
+    rng = np.random.default_rng(seed)
+    ns = rng.integers(nmin, L + 1, B)
+    S = np.stack([encode("".join(rng.choice(list("ACGU"), n)), L)
+                  for n in ns])
+    return S, ns
+
+
+def _close(a, b, rtol):
+    a, b = a.double().cpu(), b.double().cpu()
+    assert torch.all((a - b).abs() <= rtol * b.abs() + 1e-30), \
+        float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def test_fold_kernels_match_plain(dev):
+    tt = ts.as_tables(get_default_params(), dev)
+    S, n = _seqs(0, 16, 64, 40)
+    S, n = torch.as_tensor(S, device=dev), torch.as_tensor(n, device=dev)
+    sig = torch.exp(-torch.full((16,), ts.SCALE_E0, device=dev)
+                    / tt.scalar(tt.bt.kt))
+    ff = fold_factors(tt, S, n, sig)
+    F = ts.stack_cols(ff)
+    w2k, bulge_k, pows = sig_tables(tt, sig)
+    args = (F, w2k, bulge_k, sig, pows)
+    for k, p in zip(ts.inside(*args), ts.inside_plain(*args)):
+        _close(k, p, 1e-4)
+    qm1_c, qb_c, qm_c, _, q1 = ts.inside(*args)
+    qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+    n32 = n.to(torch.int32)
+    q2k = ts.q2(qbe, sig, n32)
+    _close(q2k, ts.q2_plain(qbe, sig, n32), 1e-4)
+    q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
+    oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2k, w2k,
+             bulge_k, sig, pows)
+    _close(ts.outside(*oargs), ts.outside_plain(*oargs), 1e-4)
+
+
+def test_cofold_kernels_match_plain(dev):
+    tt = ts.as_tables(get_default_params(), dev)
+    S1, n1 = _seqs(1, 8, 32, 20)
+    S2, n2 = _seqs(2, 8, 32, 20)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    S1, S2, n1, n2 = t(S1), t(S2), t(n1), t(n2)
+    S = tc._pack_concat(S1, S2, n1)
+    n, cut = n1 + n2, n1
+    sig = torch.exp(-torch.full((8,), ts.SCALE_E0, device=dev)
+                    / tt.scalar(tt.bt.kt))
+    ff = co_factors(tt, S, n, cut, sig)
+    F = ts.stack_cols(ff)
+    w2k, bulge_k, pows = sig_tables(tt, sig)
+    args = (F, w2k, bulge_k, sig, pows, cut)
+    kout = tc.co_inside(*args)
+    for k, p in zip(kout, ts.inside_plain(*args)):
+        _close(k, p, 1e-4)
+    qm1_c, qb_c, qm_c, qx_c, q1 = kout
+    q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+    q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
+    qx = qx_c.transpose(1, 2).contiguous()
+    qxA, qBpref = tc.exterior_vectors(qx, cut)
+    oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, qx, qxA, qBpref,
+             q1pad, q2v, w2k, bulge_k, sig, pows, cut)
+    _close(tc.co_outside(*oargs), tc.co_outside_plain(*oargs), 1e-4)
+
+
+def test_batch_fold_cuda_matches_cpu(dev):
+    S, n = _seqs(3, 8, 64, 30)
+    params = get_default_params()
+    before = dict(_cuda.LAUNCHES)
+    g = ts.batch_fold(params, S, n, device=dev)
+    c = ts.batch_fold(params, S, n, device="cpu")
+    assert _cuda.LAUNCHES["inside"] > before.get("inside", 0)
+    assert _cuda.LAUNCHES["outside"] > before.get("outside", 0)
+    np.testing.assert_allclose(g["bpp"].cpu().numpy(), c["bpp"].numpy(),
+                               atol=1e-5)
+
+
+def test_kernel_wrappers_reject_float64(dev):
+    F = torch.zeros(15, 1, 32, 32, dtype=torch.float64, device=dev)
+    z = torch.zeros(1, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        ts.inside(F, z, z, z, z)
