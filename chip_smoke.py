@@ -2,28 +2,52 @@
 """Smoke run of the PyTorch + CUDA port (ractip_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(--only kernels,corpus,zscore runs a subset, for development; a subset
-run never prints the final ok line).
+(--only kernels,corpus,zscore,duplex runs a subset, for development; a
+subset run never prints the final ok line).
 
 Phases (each prints its own lines; the run exits 0 only if all pass):
   1. device   the card's name, and name + power limit from nvidia-smi;
-  2. build    nvcc builds csrc/*.cu for sm_90a; seconds, registers, spills;
-  3. kernels  each of K1-K5 against its plain PyTorch version on the same
-              inputs, at the main path's shapes (fold B=512 L=96, cofold
-              B=256 Lc=192 cut=70) and at the corpus cofold shape (Lc=288),
-              with CUDA-event times of both; NaN or infinities in one
-              version and not the other fail, as do non-finite pair
+  2. build    nvcc builds csrc/*.cu for sm_90a, one process per source;
+              seconds, registers, spills;
+  3. kernels  each of K1-K6 against its plain PyTorch version on the same
+              inputs, at the main paths' shapes (fold B=512 L=96, cofold
+              B=256 Lc=192 cut=70, duplex B=256 L1=L2=96), at the corpus
+              shapes (cofold Lc=288, duplex L1=128 L2=160) and for K6 at a
+              long target (B=2, L1=64, L2=2048), with CUDA-event times of
+              both and each kernel's bound on the card; NaN or infinities in
+              one version and not the other fail, as do non-finite pair
               probabilities and a second launch that is not bit-identical;
   4. corpus   predict_batch on the bundled 8-pair corpus against the golden
               file made by the JAX package (tests/data/torch_port_golden.json);
   5. zscore   CopA x CopT against 1000 seeded decoys at chunk 256 (per-stage
-              times, decoy pipelines/s, z/zs sanity band), and the golden's
-              64-decoy seeded run for parity;
-  6. counts   every kernel launched on the main path (phases 4-5), and no
-              plain version ran on a CUDA tensor there.
-The line before the last is the kernels' JSON record; the last line is
+              times, decoy pipelines/s, z/zs sanity band); then, outside
+              the main path's count, the golden's 64-decoy seeded run for
+              parity;
+  6. duplex   the pure-duplex model (--duplex, K6 in place of the cofold):
+              the corpus against tests/data/torch_port_golden_duplex.json,
+              then CopA x CopT against 1000 seeded decoys at chunk 256
+              (stage times, decoy pipelines/s); then, outside the main
+              path's count, the golden's 64-decoy seeded z-score for parity;
+  7. counts   each path's kernels launched, the other model's kernels not,
+              and no plain version on a CUDA tensor.  The counts are set to
+              0 just before each main path (phases 4-5, phase 6 without
+              the parity runs) and read just after it; the kernels line
+              reports these.  Each parity run has a count of its own.
+The line before the last is the card's name and power limit, the one
+before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
 chiprun_out/chip_smoke.json.
+
+Bounds: a kernel's bound_ms is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its operations over
+67 TFLOP/s (FP32 without tensor cores; NVIDIA's H100 SXM data sheet, at a
+700 W limit).  The operations are those of the recurrences' dominant terms
+on this run's valid cells (windows clipped at the sequence ends), so the
+bound is a lower one.  The bytes are those of each kernel's inputs and
+outputs; K6 takes the lengths n1, n2 and reads the factors only inside
+the n1 x n2 chain region, so its factor bytes count that region, while
+K1-K5 take no lengths and read whole buckets.  No single PyTorch call computes any of these DPs,
+so library_ms is null.
 """
 
 from __future__ import annotations
@@ -39,6 +63,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
+GOLDEN_DUPLEX = ROOT / "tests" / "data" / "torch_port_golden_duplex.json"
 
 FOLD_B, FOLD_L = 512, 96
 CO_B, CO_L1, CO_L2, CO_CUT = 256, 96, 96, 70
@@ -46,18 +71,32 @@ TOL_STATE = 1e-4          # inside states / ob, relative, at L <= 192
 TOL_PROB = 1e-5           # bpp / hp, absolute, at L <= 192
 TOL_STATE_288 = 1e-3      # corpus shape (Lc = 288): measured 2.7e-4 (PERF.md)
 TOL_PROB_288 = 1e-5       # measured 1.2e-7 (PERF.md)
+# K6, the JAX package's own Pallas-vs-jnp gates (tests/test_duplex_pallas.py)
+TOL_DUPLEX_LOG = 5e-4     # unscaled log chain sums, absolute, same support
+TOL_DUPLEX_PR = 2e-5      # pr, absolute
+TOL_DUPLEX_LOGZ = (1e-5, 1e-4)   # log_zd, rtol and atol
+DUPLEX_B, DUPLEX_L = 256, 96
 Z_TPU, ZS_TPU, Z_BAND = -6.374, -2.845, 0.5
-KERNELS = [  # name, source, TPU kernel it replaces
+KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
     ("inside", "ractip_tpu_torch/csrc/inside.cu",
-     "ractip_tpu/ops/scan_pallas.py:349"),
+     "ractip_tpu/ops/scan_pallas.py:349", "default"),
     ("outside", "ractip_tpu_torch/csrc/outside.cu",
-     "ractip_tpu/ops/scan_pallas.py:488"),
-    ("q2", "ractip_tpu_torch/csrc/q2.cu", "ractip_tpu/ops/scan_pallas.py:145"),
+     "ractip_tpu/ops/scan_pallas.py:488", "default"),
+    ("q2", "ractip_tpu_torch/csrc/q2.cu", "ractip_tpu/ops/scan_pallas.py:145",
+     "default"),
     ("co_inside", "ractip_tpu_torch/csrc/inside.cu",
-     "ractip_tpu/ops/cofold_pallas.py:215"),
+     "ractip_tpu/ops/cofold_pallas.py:215", "default"),
     ("co_outside", "ractip_tpu_torch/csrc/outside.cu",
-     "ractip_tpu/ops/cofold_pallas.py:404"),
+     "ractip_tpu/ops/cofold_pallas.py:404", "default"),
+    ("duplex_sweep", "ractip_tpu_torch/csrc/duplex.cu",
+     "ractip_tpu/ops/duplex_pallas.py:165", "duplex"),
 ]
+# the kernels each path runs; the other kernels must not launch there
+PATHS = {"default": {"inside", "outside", "q2", "co_inside", "co_outside"},
+         "duplex": {"inside", "outside", "q2", "duplex_sweep"}}
+PEAK_FLOPS = 67e12        # FP32 without tensor cores, H100 SXM
+PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
+MAXLOOP = 30
 
 
 def say(*a):
@@ -116,6 +155,57 @@ def diff(a, b):
     return d.max().item(), rel, *counts
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes / 3.35 TB/s and operations
+    / 67 TFLOP/s."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fold_ops(ns, contractions: int) -> float:
+    """Operations of an inside or outside column scan (K1, K2, K4, K5) over
+    instances of lengths ns: per cell (i, j) of span d = j - i >= 4 the
+    generic interior loops that fit inside it (u1 + u2 <= min(30, d - 6)),
+    the bulges of size >= 2 on either side, the seven shifted loop terms,
+    and `contractions` dot products over the span (2 operations a term)."""
+    import numpy as np
+    total = 0.0
+    for n in ns:
+        d = np.arange(4, int(n))
+        cells = int(n) - d
+        s = np.clip(np.minimum(MAXLOOP, d - 6), 0, None)
+        gen = s * (s - 1) // 2
+        bul = 2 * np.clip(np.minimum(MAXLOOP, d - 5) - 1, 0, None)
+        total += float(np.sum(cells * (2 * (gen + bul + 7)
+                                       + 2 * contractions * d)))
+    return total
+
+
+def duplex_ops(n1s, n2s) -> float:
+    """Operations of one direction of the duplex sweep (K6) over instances
+    with chain regions n1 x n2: per cell the generic-loop terms whose window
+    cell lies inside the region (row distance u1 + 1 <= t rows swept,
+    column shift u2 + 1 inside n2), the bulges likewise, the seven shifted
+    terms, and 8 more (mismatch, tau, start, the ring products, scaling)."""
+    import numpy as np
+    total = 0.0
+    for n1, n2 in set(zip(map(int, n1s), map(int, n2s))):
+        t = np.arange(n1)[:, None]
+        room = n2 - 2 - np.arange(n2)[None, :]   # column shifts left
+        gen = sum(np.clip(np.minimum(MAXLOOP - u1, room), 0, None)
+                  * (t >= u1 + 1) for u1 in range(1, MAXLOOP))
+        b1 = np.clip(np.minimum(MAXLOOP, t - 1) - 1, 0, None) * (room >= 0)
+        b2 = (t >= 1) * np.clip(np.minimum(MAXLOOP, room) - 1, 0, None)
+        cell = 2 * (gen + b1 + b2 + 7 * (t >= 1)) + 8
+        count = sum(1 for a, b in zip(n1s, n2s) if (a, b) == (n1, n2))
+        total += count * float(cell.sum())
+    return total
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() by CUDA events, after one warm-up call."""
     import torch
@@ -169,7 +259,8 @@ def phase_build(run: Run):
             regs.setdefault(cur, {})["regs"] = int(m.group(1))
     names = {"inside_kernelILb0": "inside", "inside_kernelILb1": "co_inside",
              "outside_kernelILb0": "outside",
-             "outside_kernelILb1": "co_outside", "q2_kernel": "q2"}
+             "outside_kernelILb1": "co_outside", "q2_kernel": "q2",
+             "duplex_sweep_kernel": "duplex_sweep"}
     for mangled, v in sorted(regs.items()):
         short = next((s for k, s in names.items() if k in mangled), mangled)
         say(f"  ptxas {short}: {v.get('regs')} registers, "
@@ -181,7 +272,8 @@ def phase_build(run: Run):
 
 
 def _shuffled_pairs(B):
-    from ractip_tpu_torch.data import record, shuffle_batch
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.pipeline.shuffle import shuffle_batch
     a, b = record("CopA.fa").seq, record("CopT.fa").seq
     return list(zip(shuffle_batch(a, B, 11), shuffle_batch(b, B, 12)))
 
@@ -189,7 +281,7 @@ def _shuffled_pairs(B):
 def _encode(pairs, L1, L2, dev):
     import numpy as np
     import torch
-    from ractip_tpu_torch.data import encode
+    from ractip_tpu_torch.ops.seq import encode
     S1 = torch.as_tensor(np.stack([encode(a, L1) for a, _ in pairs]),
                          device=dev).long()
     S2 = torch.as_tensor(np.stack([encode(b, L2) for _, b in pairs]),
@@ -200,23 +292,27 @@ def _encode(pairs, L1, L2, dev):
 
 
 def phase_kernels(run: Run):
+    import numpy as np
     import torch
-    from ractip_tpu_torch.data import (bucket_length, corpus_pairs,
-                                       get_default_params)
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs
     from ractip_tpu_torch.ops import cofold as tc
     from ractip_tpu_torch.ops import scan as ts
     from ractip_tpu_torch.ops.factors import co_factors, fold_factors
+    from ractip_tpu_torch.ops.seq import bucket_length
     from ractip_tpu_torch.params.boltz import sig_tables
+    from ractip_tpu_torch.params.tables import get_default_params
 
     dev = torch.device("cuda")
     tt = ts.as_tables(get_default_params(), dev)
     res = {}
 
-    def rec(name, shape, kfn, pfn, tol_rel, tol_abs, probs=lambda o: []):
+    def rec(name, shape, kfn, pfn, tol_rel, tol_abs, probs=lambda o: [],
+            ops=0.0, inputs=()):
         """Hold the kernel call kfn() against its plain version pfn() on the
         same inputs, and a second kernel launch against the first (it must
         be bit-identical: a race would show here).  probs(outputs) gives the
-        pair probabilities the outputs lead to.  Returns kfn()'s outputs."""
+        pair probabilities the outputs lead to; ops and the input tensors
+        give the bound.  Returns kfn()'s outputs."""
         tup = lambda o: o if isinstance(o, tuple) else (o,)
         outs_k, outs_p, again = tup(kfn()), tup(pfn()), tup(kfn())
         same = all(torch.equal(a, b) for a, b in zip(outs_k, again))
@@ -230,6 +326,7 @@ def phase_kernels(run: Run):
             ab, _, nk, np_ = diff(a, b)
             pab, pnonfin = max(pab, ab), pnonfin + nk + np_
         ms, plain_ms = cuda_ms(kfn, 5), cuda_ms(pfn, 1)
+        bms, by = bound(ops, nbytes(*inputs, *outs_k))
         # the probabilities leave the DP for the LP: they must be finite
         ok = (worst_rel <= tol_rel and pab <= tol_abs and pnonfin == 0
               and same)
@@ -238,12 +335,13 @@ def phase_kernels(run: Run):
                   f"kernel/plain {nonfin[0]}/{nonfin[1]}, probs max abs "
                   f"{pab:.3e} (tol {tol_abs:g}), probs non-finite {pnonfin},"
                   f" relaunch bit-identical {same}; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms")
+                  f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
         res.setdefault(name, []).append(dict(
             shape=shape, max_rel=worst_rel, max_abs=worst_abs,
             nonfinite_kernel=nonfin[0], nonfinite_plain=nonfin[1],
             prob_max_abs=pab, prob_nonfinite=pnonfin, relaunch_same=same,
-            ms=ms, plain_ms=plain_ms))
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops,
+            bytes=nbytes(*inputs, *outs_k)))
         return outs_k
 
     # ---- fold at the main path's shape: K1, K3, K2
@@ -257,21 +355,26 @@ def phase_kernels(run: Run):
     F = ts.stack_cols(ff)
     w2k, bulge_k, pows = sig_tables(tt, sig)
     args = (F, w2k, bulge_k, sig, pows)
+    ns = n.tolist()
     qm1_c, qb_c, qm_c, _, q1 = rec(
         "inside", [FOLD_B, FOLD_L], lambda: ts.inside(*args),
-        lambda: ts.inside_plain(*args), TOL_STATE, TOL_PROB)
+        lambda: ts.inside_plain(*args), TOL_STATE, TOL_PROB,
+        ops=fold_ops(ns, 2), inputs=args)
     qb = qb_c.transpose(1, 2)
     qbe = (qb * ff.fe).contiguous()
     n32 = n.to(torch.int32)
     q2k, = rec("q2", [FOLD_B, FOLD_L], lambda: ts.q2(qbe, sig, n32),
-               lambda: ts.q2_plain(qbe, sig, n32), TOL_STATE, TOL_PROB)
+               lambda: ts.q2_plain(qbe, sig, n32), TOL_STATE, TOL_PROB,
+               ops=float(sum(m * (m + 1) for m in ns)),
+               inputs=(qbe, sig, n32))
     zn = q1.gather(1, (n - 1)[:, None])[:, 0]
     q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
     qmN = qm_c.transpose(1, 2).contiguous()
     oargs = (F, qmN, qm1_c, q1pad, q2k, w2k, bulge_k, sig, pows)
     rec("outside", [FOLD_B, FOLD_L], lambda: ts.outside(*oargs),
         lambda: ts.outside_plain(*oargs), TOL_STATE, TOL_PROB,
-        lambda o: [ts.pair_probs(qb, o[0].transpose(1, 2), zn)])
+        lambda o: [ts.pair_probs(qb, o[0].transpose(1, 2), zn)],
+        ops=fold_ops(ns, 2), inputs=oargs)
 
     # ---- cofold at the main path's shape and at the corpus shape: K4, K5
     def cofold_case(pairs, L1, L2, tol_rel, tol_abs):
@@ -286,9 +389,11 @@ def phase_kernels(run: Run):
         w2k, bulge_k, pows = sig_tables(tt, sig)
         args = (F, w2k, bulge_k, sig, pows, cut)
         shape = [B, L1 + L2]
+        ns = n.tolist()
         qm1_c, qb_c, qm_c, qx_c, q1 = rec(
             "co_inside", shape, lambda: tc.co_inside(*args),
-            lambda: ts.inside_plain(*args), tol_rel, tol_abs)
+            lambda: ts.inside_plain(*args), tol_rel, tol_abs,
+            ops=fold_ops(ns, 3), inputs=args)
         qb = qb_c.transpose(1, 2)
         zn = q1.gather(1, (n - 1)[:, None])[:, 0]
         q2v = ts.q2((qb * ff.fe).contiguous(), sig, n)
@@ -301,7 +406,8 @@ def phase_kernels(run: Run):
         rec("co_outside", shape, lambda: tc.co_outside(*oargs),
             lambda: tc.co_outside_plain(*oargs), tol_rel, tol_abs,
             lambda o: [tc.cross_block(ts.pair_probs(qb, o[0].transpose(1, 2),
-                                                    zn), n1, n2, L1, L2)])
+                                                    zn), n1, n2, L1, L2)],
+            ops=fold_ops(ns, 3), inputs=oargs)
 
     cofold_case([(a[:CO_CUT], b) for a, b in _shuffled_pairs(CO_B)],
                 CO_L1, CO_L2, TOL_STATE, TOL_PROB)
@@ -309,97 +415,232 @@ def phase_kernels(run: Run):
     L1 = max(bucket_length(len(a)) for a, _ in corpus)
     L2 = max(bucket_length(len(b)) for _, b in corpus)
     cofold_case(corpus, L1, L2, TOL_STATE_288, TOL_PROB_288)
+
+    # ---- duplex sweeps (K6): the main path, the corpus, a long target
+    duplex_case(run, res, tt, _shuffled_pairs(DUPLEX_B), DUPLEX_L, DUPLEX_L)
+    duplex_case(run, res, tt, corpus, L1, L2)
+    rng = np.random.default_rng(7)
+    acgu = list("ACGU")
+    long = [("".join(rng.choice(acgu, 40)), "".join(rng.choice(acgu, 1990))),
+            ("".join(rng.choice(acgu, 64)), "".join(rng.choice(acgu, 2048)))]
+    duplex_case(run, res, tt, long, 64, 2048)
     run.record["kernels"] = res
     torch.cuda.synchronize()
 
 
-def phase_corpus(run: Run, timer_cls):
+def duplex_case(run: Run, res: dict, tt, pairs, L1, L2):
+    """K6 at one shape: both directions in one launch against the plain
+    sweeps, in the log domain (log M + lsc; -inf where M = 0, which must be
+    the same cells), a relaunch bit-identical to the first launch, then the
+    posteriors of both against each other."""
+    import torch
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.ops import duplex as td
+    dev = tt.device
+    S1, S2, n1, n2 = _encode(pairs, L1, L2, dev)
+    B = S1.shape[0]
+    ffw = td.duplex_factors_fw(tt, S1, S2, n1, n2)
+    fbk = td.duplex_factors_bk(tt, S1, S2, n1, n2)
+    kin = td._sweep_inputs(tt, ffw, fbk, n1, n2)
+    kfn = lambda: _cuda.launch_duplex_sweep(*kin)
+    pfn = lambda: (td.sweep_plain(ffw, tt, False), td.sweep_plain(fbk, tt,
+                                                                   True))
+    Mk, lk = kfn()
+    Mk2, lk2 = kfn()
+    same = torch.equal(Mk, Mk2) and torch.equal(lk, lk2)
+    (Mf, lf), (Mb, lb) = pfn()
+    Mp, lp = torch.stack([Mf, Mb]), torch.stack([lf, lb])
+    lg = lambda M, l: M.double().log() + l.double()[..., None]
+    dab, _, nk, np_ = diff(lg(Mk, lk), lg(Mp, lp))
+    nonneg = bool((Mk >= 0).all()) and bool((Mp >= 0).all())
+    pk = td.posteriors(Mk[0], lk[0], Mk[1], lk[1], ffw.close)
+    pp = td.posteriors(Mf, lf, Mb, lb, ffw.close)
+    prab, _, prk, prp = diff(pk.pr, pp.pr)
+    zab, _, zk, zp = diff(pk.log_zd, pp.log_zd)
+    z_ok = zab <= TOL_DUPLEX_LOGZ[1] + TOL_DUPLEX_LOGZ[0] * float(
+        pp.log_zd.abs().max())
+    ms, plain_ms = cuda_ms(kfn, 5), cuda_ms(pfn, 1)
+    ops = 2 * duplex_ops(n1.tolist(), n2.tolist())
+    # the factors inside the chain regions (the kernel reads nothing past
+    # them), the other inputs and the outputs whole
+    nb = (2 * 11 * 4 * int((n1 * n2).sum()) + nbytes(*kin[1:], Mk, lk))
+    bms, by = bound(ops, nb)
+    ok = (dab <= TOL_DUPLEX_LOG and nonneg and same
+          and prab <= TOL_DUPLEX_PR and prk + prp + zk + zp == 0 and z_ok)
+    run.check("kernels", ok, f"duplex_sweep {[B, L1, L2]}: log-domain max abs "
+              f"{dab:.3e} (tol {TOL_DUPLEX_LOG:g}), zero cells kernel/plain "
+              f"{nk}/{np_}, pr max abs {prab:.3e} (tol {TOL_DUPLEX_PR:g}), "
+              f"log_zd max abs {zab:.3e} (rtol {TOL_DUPLEX_LOGZ[0]:g}, atol "
+              f"{TOL_DUPLEX_LOGZ[1]:g}), non-finite pr/log_zd "
+              f"{prk + prp}/{zk + zp}, relaunch bit-identical {same}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+              f"({by})")
+    res.setdefault("duplex_sweep", []).append(dict(
+        shape=[B, L1, L2], max_abs=dab, zero_cells_kernel=nk,
+        zero_cells_plain=np_, pr_max_abs=prab, log_zd_max_abs=zab,
+        relaunch_same=same, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, ops=ops, bytes=nb))
+
+
+def _options(model: str, **kw):
+    from ractip_tpu_torch.pipeline.options import Options
+    return Options(use_pf_duplex=model == "duplex", **kw)
+
+
+def phase_corpus(run: Run, timer_cls, model: str, golden: Path):
     import numpy as np
     import torch
-    from ractip_tpu_torch.data import corpus_pairs, get_default_params
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs
+    from ractip_tpu_torch.params.tables import get_default_params
     from ractip_tpu_torch.pipeline.batched import predict_batch
-    from ractip_tpu_torch.pipeline.options import Options
-    gold = json.loads(GOLDEN.read_text())["corpus"]["pairs"]
+    gold = json.loads(golden.read_text())["corpus"]["pairs"]
     recs = list(corpus_pairs())
     pairs = [(fa1.seq, fa2.seq) for _, fa1, fa2 in recs]
     timer = timer_cls("cuda")
     t0 = time.perf_counter()
-    res = predict_batch(get_default_params(), pairs, Options(), timer=timer,
-                        device="cuda")
+    res = predict_batch(get_default_params(), pairs, _options(model),
+                        timer=timer, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    say(f"  corpus wall {wall:.2f} s, stages {json.dumps(timer.report())}")
+    say(f"  {model} corpus wall {wall:.2f} s, stages "
+        f"{json.dumps(timer.report())}")
+    tag = f"{model} corpus"
     rows = []
     for (name, _, _), r1, r2, obj in zip(recs, res.r1, res.r2, res.objective):
         g = next(x for x in gold if x["name"] == name)
         same = (r1, r2) == (g["r1"], g["r2"])
         dobj = abs(float(obj) - g["objective"])
         if same:
-            run.check("corpus", dobj <= 1e-4, f"{name}: brackets identical, "
+            run.check(tag, dobj <= 1e-4, f"{name}: brackets identical, "
                       f"objective {obj:.6f} (golden {g['objective']:.6f})")
         else:
-            run.check("corpus", dobj <= 1e-4, f"{name}: brackets differ, "
+            run.check(tag, dobj <= 1e-4, f"{name}: brackets differ, "
                       f"objective {obj:.6f} vs golden {g['objective']:.6f} "
                       f"(|d|={dobj:.2e}): alternative optimum")
             say(f"    port   {r1} / {r2}\n    golden {g['r1']} / {g['r2']}")
         rows.append(dict(name=name, same=same, objective=float(obj),
                          golden=g["objective"]))
-    run.check("corpus", float(np.max(res.violation)) < 0.5,
+    run.check(tag, float(np.max(res.violation)) < 0.5,
               "all decoded structures feasible")
-    run.record["corpus"] = dict(wall=wall, stages=timer.report(), pairs=rows)
+    run.record[tag] = dict(wall=wall, stages=timer.report(), pairs=rows)
 
 
-def phase_zscore(run: Run, timer_cls):
+def _zstat(x0, xs) -> float:
+    """(x0 - mean) / sd over the decoys, as zscore_batch computes it."""
+    import numpy as np
+    m, v = float(np.mean(xs)), float(np.var(xs))
+    return (x0 - m) / np.sqrt(v) if v > 0 else float("inf")
+
+
+def _zscore_full(run: Run, timer_cls, model: str, band: bool):
+    """CopA x CopT against 1000 seeded decoys at chunk 256."""
     import numpy as np
     import torch
-    from ractip_tpu_torch.data import get_default_params, native_shuffle, \
-        record
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.params.tables import get_default_params
     from ractip_tpu_torch.pipeline.batched import zscore_batch
-    from ractip_tpu_torch.pipeline.options import Options
-    fa1, fa2 = record("CopA.fa"), record("CopT.fa")
-    params = get_default_params()
-    nat = native_shuffle()
-    run.check("zscore", nat, f"native uShuffle available: {nat}")
+    tag = f"{model} zscore"
+    before = dict(_cuda.LAUNCHES)
     timer = timer_cls("cuda")
     t0 = time.perf_counter()
-    z, zs, st = zscore_batch(fa1, fa2, Options(zscore=12, num_shuffling=1000,
-                                               seed=1), params, chunk=256,
-                             timer=timer, device="cuda")
+    z, zs, st = zscore_batch(record("CopA.fa"), record("CopT.fa"),
+                             _options(model, zscore=12, num_shuffling=1000,
+                                      seed=1), get_default_params(),
+                             chunk=256, timer=timer, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stages = timer.report()
-    say(f"  1000 decoys: z={z:.4f} zs={zs:.4f} e={st['e']:.2f} "
+    launches = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                if v > before.get(k, 0)}
+    say(f"  {model}, 1000 decoys: z={z:.4f} zs={zs:.4f} e={st['e']:.2f} "
         f"es={st['es']:.2f}; wall {wall:.2f} s, "
         f"{1000 / wall:.2f} decoy pipelines/s")
     say(f"  stages (s): {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
-    run.check("zscore", abs(z - Z_TPU) <= Z_BAND and abs(zs - ZS_TPU) <= Z_BAND,
-              f"z {z:.3f} within {Z_BAND} of {Z_TPU} and zs {zs:.3f} within "
-              f"{Z_BAND} of {ZS_TPU} (unseeded TPU run: sanity band)")
-    run.check("zscore", float(np.max(st["violation"])) < 0.5,
+    say(f"  kernel launches in this z-score: {json.dumps(launches)}")
+    # the first 256 seeded decoys are those of a 256-decoy run: the z a
+    # one-chunk run would give (not gated; for choosing a shorter run)
+    z256 = _zstat(st["e"], st["decoy_e"][:256])
+    zs256 = _zstat(st["es"], st["decoy_es"][:256])
+    say(f"  z, zs over the first 256 decoys: {z256:.4f}, {zs256:.4f}")
+    if band:
+        run.check(tag, abs(z - Z_TPU) <= Z_BAND and abs(zs - ZS_TPU) <= Z_BAND,
+                  f"z {z:.3f} within {Z_BAND} of {Z_TPU} and zs {zs:.3f} "
+                  f"within {Z_BAND} of {ZS_TPU} (unseeded TPU run: sanity "
+                  "band)")
+    run.check(tag, bool(np.isfinite(z) and np.isfinite(zs)),
+              f"z {z:.4f} and zs {zs:.4f} finite")
+    run.check(tag, float(np.max(st["violation"])) < 0.5,
               "all decoy structures feasible")
-    gz = json.loads(GOLDEN.read_text())["zscore"]
-    z64, zs64, st64 = zscore_batch(
-        fa1, fa2, Options(zscore=12, num_shuffling=gz["num_shuffling"],
-                          seed=gz["seed"]), params, chunk=256, device="cuda")
-    same = int(np.sum(np.abs(np.asarray(st64["decoy_e"])
+    return dict(z=z, zs=zs, e=st["e"], es=st["es"], wall=wall,
+                rate=1000 / wall, stages=stages, launches=launches,
+                z256=z256, zs256=zs256)
+
+
+def _zscore_parity(run: Run, model: str, gz: dict):
+    """The golden's seeded z-score: z, zs within 1e-2, decoy energies."""
+    import numpy as np
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.batched import zscore_batch
+    z, zs, st = zscore_batch(
+        record("CopA.fa"), record("CopT.fa"),
+        _options(model, zscore=12, num_shuffling=gz["num_shuffling"],
+                 seed=gz["seed"]), get_default_params(), chunk=256,
+        device="cuda")
+    same = int(np.sum(np.abs(np.asarray(st["decoy_e"])
                              - np.asarray(gz["decoy_e"])) < 1e-6))
-    run.check("zscore", abs(z64 - gz["z"]) <= 1e-2
-              and abs(zs64 - gz["zs"]) <= 1e-2,
-              f"64-decoy seeded parity: z {z64:.4f} vs golden {gz['z']:.4f},"
-              f" zs {zs64:.4f} vs {gz['zs']:.4f}; {same}/"
-              f"{gz['num_shuffling']} decoy energies identical")
-    run.record["zscore"] = dict(z=z, zs=zs, e=st["e"], es=st["es"],
-                                wall=wall, rate=1000 / wall, stages=stages,
-                                z64=z64, zs64=zs64, same64=same)
+    n = gz["num_shuffling"]
+    run.check(f"{model} zscore", abs(z - gz["z"]) <= 1e-2
+              and abs(zs - gz["zs"]) <= 1e-2 and same == n,
+              f"{n}-decoy seeded parity: z {z:.4f} vs golden {gz['z']:.4f},"
+              f" zs {zs:.4f} vs {gz['zs']:.4f}; {same}/{n} decoy energies "
+              "identical")
+    return dict(z64=z, zs64=zs, same64=same)
+
+
+def phase_zscore(run: Run, timer_cls, model: str):
+    from ractip_tpu_torch import native
+    nat = native.available()
+    run.check(f"{model} zscore", nat, f"native uShuffle available: {nat}")
+    # no TPU run of the duplex z-score exists: its parity is the golden's
+    run.record[f"{model} zscore"] = _zscore_full(run, timer_cls, model,
+                                                 band=model == "default")
+
+
+def phase_parity(run: Run, model: str):
+    gold = json.loads((GOLDEN if model == "default"
+                       else GOLDEN_DUPLEX).read_text())["zscore"]
+    rec = _zscore_parity(run, model, gold if model == "default"
+                         else gold["64"])
+    run.record.setdefault(f"{model} zscore", {}).update(rec)
+
+
+def count_path(run: Run, window: str, path: str, launches: dict,
+               plain: dict) -> None:
+    """The path's kernels launched, the others not, no plain version on a
+    CUDA tensor."""
+    for name, *_ in KERNELS:
+        n = launches.get(name, 0)
+        want = name in PATHS[path]
+        run.check("counts", (n > 0) == want,
+                  f"{window}: {name} {n} launches (expected "
+                  f"{'> 0' if want else '0'})")
+    run.check("counts", not any(plain.values()),
+              f"{window}: plain versions on CUDA tensors: {plain}")
 
 
 def main() -> int:
     import argparse
+    phases = {"kernels", "corpus", "zscore", "duplex"}
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
-    ap.add_argument("--only", default="kernels,corpus,zscore",
-                    help="comma list of phases after the build")
+    ap.add_argument("--only", default=",".join(sorted(phases)),
+                    help="comma list of phases after the build: "
+                         + ", ".join(sorted(phases)))
     only = set(ap.parse_args().only.split(","))
-    full = only == {"kernels", "corpus", "zscore"}
+    if not only <= phases:
+        bail(f"unknown phases {sorted(only - phases)}")
+    full = only == phases
     try:
         import torch
     except ImportError:
@@ -412,8 +653,9 @@ def main() -> int:
         bail(f"the port is not next to this script ({e})")
     if Path(ractip_tpu_torch.__file__).resolve().parent.parent != ROOT:
         bail("ractip_tpu_torch was not imported from this checkout")
-    if not GOLDEN.exists():
-        bail(f"missing {GOLDEN.relative_to(ROOT)}")
+    for g in (GOLDEN, GOLDEN_DUPLEX):
+        if not g.exists():
+            bail(f"missing {g.relative_to(ROOT)}")
     from ractip_tpu_torch.ops import _cuda
     from ractip_tpu_torch.utils.timing import StageTimer
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -422,38 +664,58 @@ def main() -> int:
     run = Run()
     run.phase("1 device", phase_device)
     run.phase("2 build", phase_build)
+    counts = {}   # window -> (path, launches, plain versions on CUDA)
+
+    def counted(window: str, path: str, phases) -> None:
+        """Run the phases with the counts set to 0 just before them and
+        read just after them."""
+        _cuda.reset_counts()
+        for args in phases:
+            run.phase(*args)
+        counts[window] = (path, dict(_cuda.LAUNCHES),
+                          dict(_cuda.PLAIN_ON_CUDA))
+
     if not run.failures:
         if "kernels" in only:
             run.phase("3 kernels vs plain", phase_kernels)
-        _cuda.reset_counts()
-        if "corpus" in only:
-            run.phase("4 corpus", phase_corpus, StageTimer)
-        if "zscore" in only:
-            run.phase("5 zscore", phase_zscore, StageTimer)
-        launches = dict(_cuda.LAUNCHES)
-        plain = dict(_cuda.PLAIN_ON_CUDA)
-        if only & {"corpus", "zscore"}:
-            say("== 6 launch counts")
-            for name, _, _ in KERNELS:
-                run.check("counts", launches.get(name, 0) > 0,
-                          f"{name}: {launches.get(name, 0)} launches on the "
-                          "main path")
-            run.check("counts", not any(plain.values()),
-                      "plain versions on CUDA tensors during phases 4-5: "
-                      f"{plain}")
-        run.record["launches"] = launches
+        for model, corpus, zscore, pc, pz in (
+                ("default", "corpus" in only, "zscore" in only, 4, 5),
+                ("duplex", "duplex" in only, "duplex" in only, 6, 6)):
+            golden = GOLDEN if model == "default" else GOLDEN_DUPLEX
+            main = []
+            if corpus:
+                main.append((f"{pc} {model} corpus", phase_corpus,
+                             StageTimer, model, golden))
+            if zscore:
+                main.append((f"{pz} {model} zscore", phase_zscore,
+                             StageTimer, model))
+            if main:
+                counted(model, model, main)
+            if zscore:
+                counted(f"{model} parity", model,
+                        [(f"{pz} {model} zscore parity", phase_parity,
+                          model)])
+        if counts:
+            say("== 7 launch counts")
+            for window, (path, launches, plain) in counts.items():
+                count_path(run, window, path, launches, plain)
+        run.record["launches"] = {k: v[1] for k, v in counts.items()}
         kern = run.record.get("kernels", {})
         rows = []
-        for name, src, rep in KERNELS:
+        for name, src, rep, path in KERNELS:
             main_shape = (kern.get(name) or [{}])[0]
-            rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                             launches=launches.get(name, 0),
-                             max_abs_err=main_shape.get("max_abs"),
-                             max_rel_err=main_shape.get("max_rel"),
-                             ms=main_shape.get("ms"),
-                             plain_ms=main_shape.get("plain_ms")))
+            rows.append(dict(
+                name=name, route="cuda", source=src, replaces=rep,
+                launches=counts.get(path, (None, {}))[1].get(name, 0),
+                max_abs_err=main_shape.get("max_abs"),
+                ms=main_shape.get("ms"), plain_ms=main_shape.get("plain_ms"),
+                bound_ms=main_shape.get("bound_ms"),
+                bound_by=main_shape.get("bound_by"), library_ms=None))
         run.record["kernel_rows"] = rows
-    run.check("imports", "jax" not in sys.modules, "jax was never imported")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "ractip_tpu"))
+    run.check("imports", not bad, f"neither jax nor the JAX package "
+              f"ractip_tpu was imported: {bad or 'none'}")
     OUT.mkdir(exist_ok=True)
     run.record["failures"] = run.failures
     (OUT / "chip_smoke.json").write_text(json.dumps(run.record, indent=1,

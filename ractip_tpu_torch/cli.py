@@ -1,7 +1,8 @@
 """Command-line interface of the port (the slice's flags only).
 
-Mirrors ractip_tpu/cli.py for the default model: a single pair runs through
-the batched path at B=1; --zscore runs the batched decoy sweep.  Flags of
+Mirrors ractip_tpu/cli.py for the default model and the pure-duplex model
+(--duplex): a single pair runs through the batched path at B=1; --zscore
+runs the batched decoy sweep.  Flags of
 the reference that the port does not carry yet exit non-zero with the
 ROADMAP item that will bring them; none is ignored quietly.
 
@@ -13,30 +14,28 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ractip_tpu.io.fasta import load_fasta
-from ractip_tpu.params.tables import get_default_params
-
+from .io.fasta import load_fasta
+from .params.tables import get_default_params
 from .pipeline.batched import predict_batch, zscore_batch
 from .pipeline.options import Options
 
 # reference flags outside the slice -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "use_constraint": ("-c/--use-constraint", "queue 1 item 3 (single-pair "
+    "use_constraint": ("-c/--use-constraint", "queue 1 item 1 (single-pair "
                        "exact path and constraint masks)"),
-    "force_constraint": ("--force-constraint", "queue 1 item 3"),
-    "rip": ("-r/--rip", "queue 1 item 3"),
-    "acc_max": ("--acc-max", "queue 1 item 3"),
-    "acc_max_ss": ("--acc-max-ss", "queue 1 item 3"),
-    "acc_num": ("--acc-num", "queue 1 item 3"),
-    "no_pk": ("--no-pk", "queue 1 item 3"),
-    "allow_isolated": ("--allow-isolated", "queue 1 item 3"),
-    "duplex": ("--duplex", "queue 1 item 4 (duplex model, kernel K6)"),
-    "contrafold": ("--contrafold", "queue 1 item 5 (CONTRAfold)"),
-    "contraduplex": ("--contraduplex", "queue 1 item 5 (CONTRAfold)"),
-    "param_file": ("-P/--param-file", "queue 1 item 3"),
-    "no_bl": ("--no-bl", "queue 1 item 3"),
-    "mesh": ("--mesh", "queue 1 item 6 (multi-GPU)"),
-    "ckpt_dir": ("--ckpt-dir", "queue 1 item 1 (ckpt_dir resume)"),
+    "force_constraint": ("--force-constraint", "queue 1 item 1"),
+    "rip": ("-r/--rip", "queue 1 item 1"),
+    "acc_max": ("--acc-max", "queue 1 item 1"),
+    "acc_max_ss": ("--acc-max-ss", "queue 1 item 1"),
+    "acc_num": ("--acc-num", "queue 1 item 1"),
+    "no_pk": ("--no-pk", "queue 1 item 1"),
+    "allow_isolated": ("--allow-isolated", "queue 1 item 1"),
+    "contrafold": ("--contrafold", "queue 1 item 3 (CONTRAfold)"),
+    "contraduplex": ("--contraduplex", "queue 1 item 3 (CONTRAfold)"),
+    "param_file": ("-P/--param-file", "queue 1 item 1"),
+    "no_bl": ("--no-bl", "queue 1 item 1"),
+    "mesh": ("--mesh", "queue 1 item 4 (multi-GPU)"),
+    "ckpt_dir": ("--ckpt-dir", "queue 1 item 2 (ckpt_dir resume)"),
 }
 
 
@@ -44,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ractip-tpu-torch",
         description="RactIP on PyTorch + CUDA: RNA-RNA interaction "
-                    "prediction (port of ractip_tpu, default model).")
+                    "prediction (port of ractip_tpu: the default model and "
+                    "the pure-duplex model).")
     ap.add_argument("fasta", nargs="+",
                     help="two FASTA files, or one FASTA with two records")
     ap.add_argument("-a", "--alpha", type=float, default=0.7,
@@ -69,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device batch chunk size")
     ap.add_argument("-e", "--show-energy", action="store_true",
                     help="free energy of the predicted joint structure")
+    ap.add_argument("--duplex", action="store_true",
+                    help="pure-duplex hybridization model (pf_duplex) in "
+                         "place of the cofold")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -82,7 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
     flag("--acc-num", type=int, default=None)
     flag("--no-pk", action="store_true")
     flag("--allow-isolated", action="store_true")
-    flag("--duplex", action="store_true")
     flag("--contrafold", action="store_true")
     flag("--contraduplex", action="store_true")
     flag("-P", "--param-file", default=None)
@@ -112,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
                    th_hy=args.hybridize_th, th_ac=args.acc_th,
                    max_w=args.max_w, min_w=args.min_w, zscore=args.zscore,
                    num_shuffling=args.num_shuffling, seed=args.seed,
-                   show_energy=args.show_energy)
+                   show_energy=args.show_energy, use_pf_duplex=args.duplex)
     params = get_default_params()
 
     if args.zscore in (1, 2, 12):

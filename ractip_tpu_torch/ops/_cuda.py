@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-At first use, nvcc compiles every ``csrc/*.cu`` for sm_90a into
+At first use, nvcc compiles every ``csrc/*.cu`` for sm_90a, one process per
+source, all started together, and links them into
 ``csrc/build/libractip_kernels.so`` (a plain C interface, loaded with
 ctypes; rebuilt when a source is newer).  Each C entry point launches on
 PyTorch's current stream, allocates nothing, and returns
@@ -28,8 +29,9 @@ from ..params.boltz import POW2, W
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 LIB_PATH = BUILD_DIR / "libractip_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
@@ -68,15 +70,33 @@ def build(force: bool = False) -> Path:
             LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in deps)):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [str(s) for s in srcs]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", str(o),
+                                                     str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        _, err = p.communicate()
+        logs.append(err)
+        if p.returncode != 0:
+            failed.append(f"{s.name} ({p.returncode}):\n{err}")
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}"
+    if not failed:
+        r = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+                           + [str(o) for o in objs], capture_output=True,
+                           text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     os.replace(tmp, LIB_PATH)
     BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG["ptxas"] = r.stderr
+    BUILD_LOG["ptxas"] = "".join(logs)
     return LIB_PATH
 
 
@@ -89,7 +109,11 @@ def lib() -> ctypes.CDLL:
             dll.rt_inside.argtypes = [P] * 6 + [P] * 5 + [I, I, I, P]
             dll.rt_outside.argtypes = [P] * 15 + [I, I, I, P]
             dll.rt_q2.argtypes = [P] * 4 + [I, I, P]
-            for f in (dll.rt_inside, dll.rt_outside, dll.rt_q2):
+            dll.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 3 + [P]
+            dll.rt_duplex_smem.argtypes = [I, I]
+            dll.rt_duplex_smem.restype = ctypes.c_longlong
+            for f in (dll.rt_inside, dll.rt_outside, dll.rt_q2,
+                      dll.rt_duplex_sweep):
                 f.restype = I
             _lib = dll
         return _lib
@@ -180,3 +204,33 @@ def launch_q2(qbe, sig, n):
     _run("q2", lib().rt_q2, _ptr(qbe), _ptr(sig), _ptr(n), _ptr(q2), B, L,
          _stream())
     return q2
+
+
+SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block on the H100
+
+
+def launch_duplex_sweep(fac, w2, bk, n1, n2):
+    """K6: fac [2, 11, B, L1, L2] (the forward, then the backward factors),
+    n1, n2 [B] int32 (the chain region; cells past it are written as 0)
+    -> (M [2, B, L1, L2], lsc [2, B, L1]).  The W-row rings live in shared
+    memory where they fit, else in a device-memory scratch allocated here."""
+    if fac.dim() != 5:
+        raise ValueError(f"duplex sweep takes [2, 11, B, L1, L2] factors, "
+                         f"got {tuple(fac.shape)}")
+    B, L1, L2 = fac.shape[2:]
+    _expect(fac, (2, 11, B, L1, L2))
+    _expect(w2, (W, W))
+    _expect(bk, (W,))
+    _expect(n1, (B,), torch.int32)
+    _expect(n2, (B,), torch.int32)
+    dll = lib()
+    ring = None
+    if dll.rt_duplex_smem(L2, 1) > SMEM_PER_BLOCK:
+        ring = torch.empty(2, B, 3, W, L2, dtype=torch.float32,
+                           device=fac.device)
+    M = torch.empty(2, B, L1, L2, dtype=torch.float32, device=fac.device)
+    lsc = torch.empty(2, B, L1, dtype=torch.float32, device=fac.device)
+    _run("duplex_sweep", dll.rt_duplex_sweep, _ptr(fac), _ptr(w2), _ptr(bk),
+         _ptr(n1), _ptr(n2), _ptr(M), _ptr(lsc), _ptr(ring), B, L1, L2,
+         _stream())
+    return M, lsc

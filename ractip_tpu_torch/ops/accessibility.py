@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ractip_tpu.constants import MAXLOOP
+from ..constants import MAXLOOP
 
 from ..params.boltz import W, TorchTables, sig_tables
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ractip_tpu.constants import TURN
+from ..constants import TURN
 
 from ..params.boltz import TorchTables
 

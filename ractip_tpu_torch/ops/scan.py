@@ -23,10 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ractip_tpu.constants import MAXLOOP
-from ractip_tpu.params.boltz import BoltzTables
-
-from ..params.boltz import POW2, W, TorchTables, sig_tables, tables_to_torch
+from ..constants import MAXLOOP
+from ..params.boltz import (POW2, W, BoltzTables, TorchTables, get_boltz,
+                            sig_tables, tables_to_torch)
 from ..utils.timing import stage
 from . import _cuda
 from .factors import FoldFactors, fold_factors
@@ -373,7 +372,6 @@ def as_tables(tables, device, dtype=torch.float32) -> TorchTables:
     if isinstance(tables, TorchTables):
         return tables
     if not isinstance(tables, BoltzTables):
-        from ractip_tpu.params.boltz import get_boltz
         tables = get_boltz(tables)
     return tables_to_torch(tables, device, dtype)
 

@@ -1,23 +1,25 @@
-"""Hand-written CUDA kernels (K1-K5) against their plain PyTorch versions.
+"""Hand-written CUDA kernels (K1-K6) against their plain PyTorch versions.
 
 These need a CUDA GPU and nvcc; without them each test skips (decided in
 the fixture, so every worker collects the same tests).  Run on the GPU
 with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 (--noconftest skips tests/conftest.py, which imports jax; this file does not.)
 Tolerances: inside states and ob rtol 1e-4 (f32 summation order), pair
-probabilities atol 1e-5."""
+probabilities atol 1e-5; the duplex sweeps (K6) in the log domain to atol
+5e-4 with identical support, as the JAX package gates its Pallas sweep."""
 
 import numpy as np
 import pytest
 import torch
 
-from ractip_tpu.ops.seq import encode
-from ractip_tpu.params.tables import get_default_params
 from ractip_tpu_torch.ops import _cuda
 from ractip_tpu_torch.ops import cofold as tc
+from ractip_tpu_torch.ops import duplex as td
 from ractip_tpu_torch.ops import scan as ts
 from ractip_tpu_torch.ops.factors import co_factors, fold_factors
+from ractip_tpu_torch.ops.seq import encode
 from ractip_tpu_torch.params.boltz import sig_tables
+from ractip_tpu_torch.params.tables import get_default_params
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +113,37 @@ def test_kernel_wrappers_reject_float64(dev):
     z = torch.zeros(1, dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
         ts.inside(F, z, z, z, z)
+
+
+@pytest.mark.parametrize("shape", [(4, 48, 32), (2, 64, 2048)])
+def test_duplex_sweep_kernel_matches_plain(dev, shape):
+    """Both directions in one launch; L2 = 2048 puts the rings in device
+    memory."""
+    B, L1, L2 = shape
+    tt = ts.as_tables(get_default_params(), dev)
+    S1, n1 = _seqs(4, B, L1, L1 // 2)
+    S2, n2 = _seqs(5, B, L2, L2 // 2)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    args = (t(S1), t(S2), t(n1), t(n2))
+    ffw, fbk = td.duplex_factors_fw(tt, *args), td.duplex_factors_bk(tt, *args)
+    before = _cuda.LAUNCHES["duplex_sweep"]
+    kern = td.sweep(tt, ffw, fbk, args[2], args[3])
+    assert _cuda.LAUNCHES["duplex_sweep"] == before + 1
+    for (Mk, lk), (ff, rev) in zip(kern, ((ffw, False), (fbk, True))):
+        Mp, lp = td.sweep_plain(ff, tt, rev)
+        Mk, Mp = Mk.double().cpu(), Mp.double().cpu()
+        assert torch.equal(Mk > 0, Mp > 0)
+        pos = Mp > 0
+        lg = lambda M, l: (torch.where(pos, M, torch.ones_like(M)).log()
+                           + l.double().cpu()[:, :, None])[pos]
+        assert float((lg(Mk, lk) - lg(Mp, lp)).abs().max()) <= 5e-4
+
+
+def test_duplex_wrapper_rejects_float64(dev):
+    tt = ts.as_tables(get_default_params(), dev, torch.float64)
+    S, n = _seqs(6, 1, 32, 20)
+    args = (torch.as_tensor(S, device=dev), torch.as_tensor(S, device=dev),
+            torch.as_tensor(n, device=dev), torch.as_tensor(n, device=dev))
+    ff = td.duplex_factors_fw(tt, *args)
+    with pytest.raises(TypeError):
+        td.sweep(tt, ff, ff, args[2], args[3])

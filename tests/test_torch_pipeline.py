@@ -11,7 +11,10 @@ single compiled JAX pipeline serves the z-score's real pair, its decoys
 and both predicted pairs (one ~90 s CPU compile instead of two), and the
 worker that runs this test keeps the JAX compile history the JAX tests
 see (tests/conftest.py describes the jaxlib compile-path crash).
-The port never imports jax: a subprocess runs the CPU slice and checks."""
+The duplex model (use_pf_duplex) is held against the JAX golden file
+tests/data/torch_port_golden_duplex.json (tools/make_torch_duplex_golden.py).
+The port never imports jax nor the JAX package: a subprocess runs the CPU
+slices and checks."""
 
 import json
 import os
@@ -25,6 +28,7 @@ import torch
 
 from ractip_tpu.io.fasta import Fasta
 from ractip_tpu.params.tables import get_default_params
+from ractip_tpu_torch.evaluate.corpus import record
 from ractip_tpu_torch.pipeline import batched as tb
 from ractip_tpu_torch.pipeline.options import Options
 
@@ -33,6 +37,8 @@ torch.set_num_threads(2)
 BUCKETS = (32, 32, 32, 64, 64)
 ITERS = 400
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN_DUPLEX = os.path.join(ROOT, "tests", "data",
+                             "torch_port_golden_duplex.json")
 
 _JAX_REFERENCE = textwrap.dedent("""
     import json, sys
@@ -100,22 +106,53 @@ def test_predict_and_zscore_batch_match_jax():
     assert abs(z - ref["z"]) < 1e-3 and abs(zs - ref["zs"]) < 1e-3
 
 
+def test_duplex_slice_matches_golden():
+    """--duplex on the CPU: corpus pairs and the 8-decoy seeded z-score.
+
+    The golden ran the JAX package at iters=3000; the certify step proves
+    every returned structure optimal, so 200 PDHG iterations give the same
+    brackets (objectives within 1e-4) and the same decoy energies."""
+    with open(GOLDEN_DUPLEX) as fh:
+        gold = json.load(fh)
+    params = get_default_params()
+    opts = Options(use_pf_duplex=True)
+    gp = [p for p in gold["corpus"]["pairs"]
+          if p["name"] in ("Tar-Tarstar", "R1inv-R2inv")]
+    got = tb.predict_batch(params, [(p["seq1"], p["seq2"]) for p in gp],
+                           opts, iters=200, device="cpu")
+    assert got.r1 == [p["r1"] for p in gp]
+    assert got.r2 == [p["r2"] for p in gp]
+    np.testing.assert_allclose(got.objective, [p["objective"] for p in gp],
+                               atol=1e-4)
+
+    gz = gold["zscore"]["8"]
+    z, zs, st = tb.zscore_batch(
+        record("CopA.fa"), record("CopT.fa"),
+        Options(zscore=12, num_shuffling=gz["num_shuffling"],
+                seed=gz["seed"], use_pf_duplex=True), params, iters=200,
+        device="cpu")
+    assert list(st["brackets"]) == gz["brackets"]
+    np.testing.assert_allclose(st["decoy_e"], gz["decoy_e"], atol=1e-9)
+    assert abs(z - gz["z"]) < 1e-3 and abs(zs - gz["zs"]) < 1e-3
+
+
 def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import sys
         import torch
         torch.set_num_threads(1)
-        from ractip_tpu.params.tables import get_default_params
+        from ractip_tpu_torch.params.tables import get_default_params
         from ractip_tpu_torch.pipeline.batched import predict_batch
         from ractip_tpu_torch.pipeline.options import Options
         import ractip_tpu_torch.cli  # noqa: F401
-        r = predict_batch(get_default_params(),
-                          [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")],
-                          Options(), iters=100, buckets=(32, 32, 32, 64, 64),
-                          device="cpu")
-        assert len(r.r1) == 1
-        assert "jax" not in sys.modules, sorted(
-            m for m in sys.modules if m.startswith("jax"))
+        pair = [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")]
+        for opts in (Options(), Options(use_pf_duplex=True)):
+            r = predict_batch(get_default_params(), pair, opts, iters=100,
+                              buckets=(32, 32, 32, 64, 64), device="cpu")
+            assert len(r.r1) == 1
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "ractip_tpu"))
+        assert not bad, bad
         print("NOJAX_OK")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,0 +1,101 @@
+#!/usr/bin/env python
+"""Write tests/data/torch_port_golden_duplex.json from the JAX package on the CPU.
+
+The golden file of the pure-duplex model (``Options(use_pf_duplex=True)``,
+the ``--duplex`` flag), which the PyTorch port must reproduce on the GPU,
+where JAX is not available:
+
+  * the batched ``predict_batch`` brackets and objectives on the bundled
+    8-pair corpus, run as one batch padded to the largest buckets (the
+    shape chip_smoke.py's duplex corpus phase uses);
+  * ``zscore_batch(CopA, CopT, Options(zscore=12, use_pf_duplex=True,
+    num_shuffling=N, seed=1))`` for N = 64 and N = 8: z, zs, e, es and the
+    per-decoy e and es values.
+
+Usage:  JAX_PLATFORMS=cpu python tools/make_torch_duplex_golden.py
+        [--out PATH] [--pairs NAME ...]   (restrict the corpus to these pairs)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+import numpy as np  # noqa: E402
+
+from ractip_tpu import native  # noqa: E402
+from ractip_tpu.evaluate.corpus import corpus_pairs, data_dir_default  # noqa: E402
+from ractip_tpu.io.fasta import load_fasta  # noqa: E402
+from ractip_tpu.params.tables import get_default_params  # noqa: E402
+from ractip_tpu.pipeline.batched import predict_batch, zscore_batch  # noqa: E402
+from ractip_tpu.pipeline.ractip import Options  # noqa: E402
+
+ZSCORE_DECOYS = (64, 8)
+ZSCORE_SEED = 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", "tests", "data",
+        "torch_port_golden_duplex.json"))
+    ap.add_argument("--pairs", nargs="*", default=None)
+    args = ap.parse_args(argv)
+
+    import jax
+    params = get_default_params()
+    gold = {"generator": "tools/make_torch_duplex_golden.py",
+            "jax_backend": jax.default_backend(),
+            "native_shuffle": bool(native.available())}
+
+    recs = [(name, fa1, fa2) for name, fa1, fa2 in corpus_pairs()
+            if args.pairs is None or name in args.pairs]
+    pairs = [(fa1.seq, fa2.seq) for _, fa1, fa2 in recs]
+    t0 = time.perf_counter()
+    res = predict_batch(params, pairs, Options(use_pf_duplex=True))
+    gold["corpus"] = {
+        "options": "Options(use_pf_duplex=True); predict_batch defaults "
+                   "(chunk=256, iters=3000, DEFAULT_BUCKETS, "
+                   "exact_gap_tol=1e-4); one batch",
+        "seconds": time.perf_counter() - t0,
+        "pairs": [dict(name=name, seq1=fa1.seq, seq2=fa2.seq, r1=r1, r2=r2,
+                       objective=float(obj))
+                  for (name, fa1, fa2), r1, r2, obj in
+                  zip(recs, res.r1, res.r2, res.objective)]}
+    print(json.dumps(gold["corpus"], indent=1), flush=True)
+
+    d = data_dir_default()
+    fa1 = load_fasta(os.path.join(d, "CopA.fa"))[0]
+    fa2 = load_fasta(os.path.join(d, "CopT.fa"))[0]
+    gold["zscore"] = {}
+    for n in ZSCORE_DECOYS:
+        t0 = time.perf_counter()
+        z, zs, st = zscore_batch(fa1, fa2, Options(
+            zscore=12, num_shuffling=n, seed=ZSCORE_SEED,
+            use_pf_duplex=True), params)
+        gold["zscore"][str(n)] = {
+            "pair": "CopA-CopT", "num_shuffling": n, "seed": ZSCORE_SEED,
+            "seconds": time.perf_counter() - t0,
+            "z": float(z), "zs": float(zs), "e": float(st["e"]),
+            "es": float(st["es"]), "brackets": list(st["brackets"]),
+            "decoy_e": [float(x) for x in np.asarray(st["decoy_e"])],
+            "decoy_es": [float(x) for x in np.asarray(st["decoy_es"])]}
+        print(json.dumps({k: v for k, v in gold["zscore"][str(n)].items()
+                          if not k.startswith("decoy")}), flush=True)
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(gold, fh, indent=1)
+        fh.write("\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -82,9 +82,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_chunk: needs a CUDA GPU")
         return 1
-    from ractip_tpu_torch.data import (bucket_length, encode,
-                                       get_default_params, record,
-                                       shuffle_batch)
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.ops.seq import bucket_length, encode
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.shuffle import shuffle_batch
     from ractip_tpu_torch.ops import _cuda
     from ractip_tpu_torch.ops.scan import as_tables
     from ractip_tpu_torch.pipeline.batched import (DEFAULT_BUCKETS,
@@ -113,8 +114,8 @@ def main() -> int:
     n1, n2 = t([len(s) for s in d1]), t([len(s) for s in d2])
 
     def call(iters, timer=None):
-        return _predict_device(tt, cfg, DEFAULT_BUCKETS, iters, True, 64, S1,
-                               n1, S2, n2, timer)
+        return _predict_device(tt, cfg, DEFAULT_BUCKETS, iters, False, True,
+                               64, S1, n1, S2, n2, timer)
 
     call(a.iters)                                   # warm-up
     rec = dict(device=smi, chunk=a.chunk, L1=L1, L2=L2, iters=a.iters)
@@ -138,7 +139,7 @@ def main() -> int:
     _, full = trace(lambda: call(a.iters))
     full["busy_share_of_unprofiled_wall"] = (
         full["device_busy_ms"] / 1e3 / stages[a.iters]["wall_s"])
-    _, post = trace(lambda: _batch_posteriors(tt, S1, n1, S2, n2, cfg))
+    _, post = trace(lambda: _batch_posteriors(tt, S1, n1, S2, n2, cfg, False))
     rec.update(trace_predict_device=full, trace_posteriors=post)
     for name, r in (("_predict_device", full), ("posteriors", post)):
         print(f"{name} at iters={a.iters}: profiled wall "
