@@ -12,11 +12,15 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
   3. kernels  each of K1-K6 against its plain PyTorch version on the same
               inputs, at the main paths' shapes (fold B=512 L=96, cofold
               B=256 Lc=192 cut=70, duplex B=256 L1=L2=96), at the corpus
-              shapes (cofold Lc=288, duplex L1=128 L2=160) and for K6 at a
-              long target (B=2, L1=64, L2=2048), with CUDA-event times of
-              both and each kernel's bound on the card; NaN or infinities in
-              one version and not the other fail, as do non-finite pair
-              probabilities and a second launch that is not bit-identical;
+              shapes (cofold Lc=288, duplex L1=128 L2=160), for K4/K5 with
+              the cut at both edges (cut=1, cut=n-1; Lc=192) and at two long
+              shapes (B=2, Lc=512 and Lc=1024: past the sizes where their
+              tables and rings fit in shared memory), and for K6 at a long
+              target (B=2, L1=64, L2=2048), with CUDA-event times of both
+              and each kernel's bound on the card; whole tables are
+              compared, padding included; NaN or infinities in one version
+              and not the other fail, as do non-finite pair probabilities
+              and a second launch that is not bit-identical;
   4. corpus   predict_batch on the bundled 8-pair corpus against the golden
               file made by the JAX package (tests/data/torch_port_golden.json);
   5. zscore   CopA x CopT against 1000 seeded decoys at chunk 256 (per-stage
@@ -44,10 +48,13 @@ once, each output written once) over 3.35 TB/s and its operations over
 700 W limit).  The operations are those of the recurrences' dominant terms
 on this run's valid cells (windows clipped at the sequence ends), so the
 bound is a lower one.  The bytes are those of each kernel's inputs and
-outputs; K6 takes the lengths n1, n2 and reads the factors only inside
-the n1 x n2 chain region, so its factor bytes count that region, while
-K1-K5 take no lengths and read whole buckets.  No single PyTorch call computes any of these DPs,
-so library_ms is null.
+outputs.  K4 and K5 take the lengths n and read the factors (and K5 its
+resident tables qm, qm1, qx) only inside each instance's n x n region, K6
+takes n1, n2 and reads the factors only inside the n1 x n2 chain region:
+their bytes count those regions and the outputs whole (K4 and K5 also
+record the whole-bucket bound beside it), while K1-K3 read whole
+buckets.  No single PyTorch call computes any of these DPs, so library_ms
+is null.
 """
 
 from __future__ import annotations
@@ -291,6 +298,17 @@ def _encode(pairs, L1, L2, dev):
     return S1, S2, n1, n2
 
 
+def _long_cofold_pairs():
+    """Random pairs (seeded) past the kernels' shared-memory sizes: Lc = 512
+    (one pair shorter than its buckets, one filling them) and Lc = 1024,
+    where K4 and K5 keep their column rings in device memory."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    rs = lambda k: "".join(rng.choice(list("ACGU"), k))
+    return [([(rs(200), rs(270)), (rs(224), rs(288))], 224, 288),
+            ([(rs(480), rs(500)), (rs(512), rs(512))], 512, 512)]
+
+
 def phase_kernels(run: Run):
     import numpy as np
     import torch
@@ -307,12 +325,14 @@ def phase_kernels(run: Run):
     res = {}
 
     def rec(name, shape, kfn, pfn, tol_rel, tol_abs, probs=lambda o: [],
-            ops=0.0, inputs=()):
+            ops=0.0, inputs=(), region_bytes=None):
         """Hold the kernel call kfn() against its plain version pfn() on the
         same inputs, and a second kernel launch against the first (it must
         be bit-identical: a race would show here).  probs(outputs) gives the
         pair probabilities the outputs lead to; ops and the input tensors
-        give the bound.  Returns kfn()'s outputs."""
+        give the bound, or region_bytes(outputs) the bytes where the kernel
+        reads only each instance's region (then the whole-bucket bound is
+        kept beside it).  Returns kfn()'s outputs."""
         tup = lambda o: o if isinstance(o, tuple) else (o,)
         outs_k, outs_p, again = tup(kfn()), tup(pfn()), tup(kfn())
         same = all(torch.equal(a, b) for a, b in zip(outs_k, again))
@@ -326,7 +346,11 @@ def phase_kernels(run: Run):
             ab, _, nk, np_ = diff(a, b)
             pab, pnonfin = max(pab, ab), pnonfin + nk + np_
         ms, plain_ms = cuda_ms(kfn, 5), cuda_ms(pfn, 1)
-        bms, by = bound(ops, nbytes(*inputs, *outs_k))
+        whole = nbytes(*inputs, *outs_k)
+        nb = whole if region_bytes is None else region_bytes(outs_k)
+        bms, by = bound(ops, nb)
+        extra = {} if region_bytes is None else dict(
+            bound_bucket_ms=bound(ops, whole)[0], bytes_bucket=whole)
         # the probabilities leave the DP for the LP: they must be finite
         ok = (worst_rel <= tol_rel and pab <= tol_abs and pnonfin == 0
               and same)
@@ -341,7 +365,7 @@ def phase_kernels(run: Run):
             nonfinite_kernel=nonfin[0], nonfinite_plain=nonfin[1],
             prob_max_abs=pab, prob_nonfinite=pnonfin, relaunch_same=same,
             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops,
-            bytes=nbytes(*inputs, *outs_k)))
+            bytes=nb, **extra))
         return outs_k
 
     # ---- fold at the main path's shape: K1, K3, K2
@@ -376,7 +400,8 @@ def phase_kernels(run: Run):
         lambda o: [ts.pair_probs(qb, o[0].transpose(1, 2), zn)],
         ops=fold_ops(ns, 2), inputs=oargs)
 
-    # ---- cofold at the main path's shape and at the corpus shape: K4, K5
+    # ---- cofold: K4, K5 at the main path's shape, the cut at both edges,
+    # the corpus shape and two long shapes (past the shared-memory sizes)
     def cofold_case(pairs, L1, L2, tol_rel, tol_abs):
         S1, S2, n1, n2 = _encode(pairs, L1, L2, dev)
         B = S1.shape[0]
@@ -390,10 +415,15 @@ def phase_kernels(run: Run):
         args = (F, w2k, bulge_k, sig, pows, cut)
         shape = [B, L1 + L2]
         ns = n.tolist()
+        cells = 4 * sum(m * m for m in ns)    # one float per cell of n x n
+        # the bytes K4 and K5 must move: the factors (and K5's resident
+        # tables) inside each instance's n x n region, the rest whole
+        small = (w2k, bulge_k, sig, pows, cut, n)
         qm1_c, qb_c, qm_c, qx_c, q1 = rec(
-            "co_inside", shape, lambda: tc.co_inside(*args),
+            "co_inside", shape, lambda: tc.co_inside(*args, n=n),
             lambda: ts.inside_plain(*args), tol_rel, tol_abs,
-            ops=fold_ops(ns, 3), inputs=args)
+            ops=fold_ops(ns, 2), inputs=args + (n,),
+            region_bytes=lambda o: F.shape[0] * cells + nbytes(*small, *o))
         qb = qb_c.transpose(1, 2)
         zn = q1.gather(1, (n - 1)[:, None])[:, 0]
         q2v = ts.q2((qb * ff.fe).contiguous(), sig, n)
@@ -403,18 +433,26 @@ def phase_kernels(run: Run):
         qxA, qBpref = tc.exterior_vectors(qx, cut)
         oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, qx, qxA,
                  qBpref, q1pad, q2v, w2k, bulge_k, sig, pows, cut)
-        rec("co_outside", shape, lambda: tc.co_outside(*oargs),
+        rec("co_outside", shape, lambda: tc.co_outside(*oargs, n=n),
             lambda: tc.co_outside_plain(*oargs), tol_rel, tol_abs,
             lambda o: [tc.cross_block(ts.pair_probs(qb, o[0].transpose(1, 2),
                                                     zn), n1, n2, L1, L2)],
-            ops=fold_ops(ns, 3), inputs=oargs)
+            ops=fold_ops(ns, 3), inputs=oargs + (n,),
+            region_bytes=lambda o: (F.shape[0] + 3) * cells + nbytes(
+                qxA, qBpref, q1pad, q2v, *small, *o))
 
     cofold_case([(a[:CO_CUT], b) for a, b in _shuffled_pairs(CO_B)],
                 CO_L1, CO_L2, TOL_STATE, TOL_PROB)
+    # cut = 1 and cut = n - 1 (a one-nucleotide strand on either side)
+    a, b = _shuffled_pairs(1)[0]
+    cofold_case([(a[:1], b), (a[:CO_CUT], b[:1]), (a[:1], b[:1]),
+                 (a[:CO_CUT], b)], CO_L1, CO_L2, TOL_STATE, TOL_PROB)
     corpus = [(fa1.seq, fa2.seq) for _, fa1, fa2 in corpus_pairs()]
     L1 = max(bucket_length(len(a)) for a, _ in corpus)
     L2 = max(bucket_length(len(b)) for _, b in corpus)
     cofold_case(corpus, L1, L2, TOL_STATE_288, TOL_PROB_288)
+    for pairs, LL1, LL2 in _long_cofold_pairs():
+        cofold_case(pairs, LL1, LL2, TOL_STATE_288, TOL_PROB_288)
 
     # ---- duplex sweeps (K6): the main path, the corpus, a long target
     duplex_case(run, res, tt, _shuffled_pairs(DUPLEX_B), DUPLEX_L, DUPLEX_L)

@@ -7,53 +7,83 @@
 // (vvec, wvec and the GA build at c + 1 == cut).
 //
 // What bounds it on the card: like the inside scan it is sequential in the
-// column (here from c = L-1 down to 0) and parallel over rows and the batch,
-// so barrier latency bounds it.  Per column it adds two O(L) contractions
-// against qm (qm^T om and qm^T ash), the window adjoints (~435 terms per
-// cell) and a rank-1 update of the resident om table (O(L) per row).
+// column (here from c = n-1 down to 0) and parallel over rows and the
+// batch, so latency bounds it: per column a contraction against qm (qm^T
+// om and qm^T ash, fused into one pass), the window adjoints (up to 435
+// terms a cell) and a rank-1 update of the om table (O(c) per row).
 //
-// Design: one block per instance, one thread per row i.  The rank-1 scatter
-// om[i, m] += ash[i] w1[m] + omcol[i] w2[m] has no race because each thread
-// owns its row i; om (L x L per instance) lives in a device-memory scratch
-// the wrapper allocates, zeroed here.  The W-deep rolling ob buffers of the
-// TPU kernel become reads of the ob columns this block already wrote.
+// Design: one block per instance, kT threads per row i (four where the
+// block holds them and the rings are in shared memory, else two or one),
+// splitting the row's window, bulges, contraction and om update and summing
+// with shuffles.  The rank-1 scatter om[i, m] += ash[i] w1[m] + omcol[i]
+// w2[m] has no race because row i's threads own its entries (each its own
+// m); om lives in shared memory where it fits beside the rings (L <= 200),
+// else in a device-memory scratch the wrapper allocates.  The W-deep
+// rolling ob buffers of the TPU kernel become rings of the last 32 columns
+// of ob * mout and ob * tau (and the last 4 raw ob columns), written once
+// per column, in shared memory where the 68 L floats fit, else in device
+// memory.  Loops run only over terms that can be nonzero: ob vanishes in
+// the cofold's columns past n and in its rows past n + 2 (the stack and
+// small-loop terms reach three rows below an inner pair), qm is strictly
+// upper triangular and zero past row n, and qm1(m+1, c) needs m <= c-2; so
+// the sweep starts at c = n-1 with every carried vector zero, the
+// contraction stops at l < min(i, n) and the window at column n-1.  Two
+// barriers a column: om(., c-1) is final once column c+1 is done (column c
+// updates m <= c-2 only), so column c already scans it (shuffle scans
+// inside each warp, one carry across warps), contracts it with qm together
+// with ash, and sums the next column's exposed-cut term; the block sums
+// are warp sums read after the next barrier.
 #include "dp_common.cuh"
 
 namespace rt {
 
-template <bool kCofold>
+// kSmem: 0 = rings and om in device memory, 1 = rings in shared memory,
+// 2 = rings and om in shared memory.
+template <bool kCofold, int kSmem, int kT>
 __global__ void __launch_bounds__(1024) outside_kernel(
     const float* __restrict__ F, const float* __restrict__ qmN_g,
     const float* __restrict__ qm1_g, const float* __restrict__ q1pad_g,
     const float* __restrict__ q2_g, const float* __restrict__ w2k_g,
     const float* __restrict__ bulge_g, const float* __restrict__ sig_g,
     const float* __restrict__ pows_g, const int* __restrict__ cut_g,
-    const float* __restrict__ qxN_g, const float* __restrict__ qxA_g,
-    const float* __restrict__ qBpref_g, float* om_s, float* ob_o, int B,
-    int L) {
+    const int* __restrict__ n_g, const float* __restrict__ qxN_g,
+    const float* __restrict__ qxA_g, const float* __restrict__ qBpref_g,
+    float* om_s, float* ob_o, float* ring_g, int B, int L) {
   extern __shared__ float sh[];
   const int b = blockIdx.x;
-  const int i = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int i = tid / kT;                 // the row; kT threads share it
+  const int sub = tid % kT;
+  const bool lead = sub == 0;             // writes the row's results
   const int Lp = L + 1;
   float* s_w2 = sh;
   float* s_bk = s_w2 + kW * kW;
   float* s_pw = s_bk + kW;
-  float* s_red = s_pw + kPow2 + 1;
-  float* s_om = s_red + 32;               // om column c
-  float* s_qmt = s_om + Lp;               // contraction results (read at i-1)
-  float* s_a = s_qmt + Lp;                // a = ob fmc sigma^2 (read at l-1)
+  float* s_red = s_pw + kPow2 + 1;        // [32] warp sums of vval
+  float* s_red2 = s_red + 32;             // [32] warp sums of the next hb
+  float* s_tot = s_red2 + 32;             // [64] warp totals of the scans
+  float* s_omn = s_tot + 64;              // om column c-1
+  float* s_qmt = s_omn + Lp;              // qm^T om (read at i-1)
+  float* s_pend = s_qmt + Lp;             // qm^T ash (read at i-1)
+  float* s_a = s_pend + Lp;               // a = ob fmc sigma^2 (read at l-1)
   float* s_w1 = s_a + Lp;                 // qm1 column c-1, shifted up
   float* s_w2v = s_w1 + Lp;               // qm1 column c, shifted up
-  float* s_scan = s_w2v + Lp;
-  float* s_scan2 = s_scan + Lp;
-  float* s_vvec = s_scan2 + Lp;           // spanning-pair adjoints (cofold)
+  float* s_ga = s_w2v + Lp;               // GA contraction (cofold)
+  float* s_vvec = s_ga + Lp;              // spanning-pair adjoints (cofold)
   float* s_wv = s_vvec + Lp;              // wvec (cofold)
-
-  for (int t = i; t < kW * kW; t += blockDim.x) s_w2[t] = w2k_g[b * kW * kW + t];
-  for (int t = i; t < kW; t += blockDim.x) s_bk[t] = bulge_g[b * kW + t];
-  for (int t = i; t < kPow2; t += blockDim.x) s_pw[t] = pows_g[b * kPow2 + t];
-  for (int t = i; t < 9 * Lp; t += blockDim.x) s_om[t] = 0.f;
+  // rings: OM = ob * mout, OA = ob * tau (slot k % 32), R = ob (slot k % 4)
+  float* ringM = kSmem >= 1 ? s_wv + Lp : ring_g + (size_t)b * ring_floats(L);
+  float* ringA = ringM + (size_t)kRing * L;
+  float* ringR = ringA + (size_t)kRing * L;
   const size_t LL = (size_t)L * L;
+  // om(i, m) at [m][i]
+  float* om = kSmem == 2 ? ringR + (size_t)kRaw * L : om_s + (size_t)b * LL;
+
+  for (int t = tid; t < kW * kW; t += blockDim.x)
+    s_w2[t] = w2k_g[b * kW * kW + t];
+  for (int t = tid; t < kW; t += blockDim.x) s_bk[t] = bulge_g[b * kW + t];
+  for (int t = tid; t < kPow2; t += blockDim.x) s_pw[t] = pows_g[b * kPow2 + t];
+  for (int t = tid; t < 128 + 9 * Lp; t += blockDim.x) s_red[t] = 0.f;
   const size_t fstride = (size_t)B * LL;
   const float* Fb = F + (size_t)b * LL;
   auto fat = [&](int f, int r, int col) -> float {
@@ -62,39 +92,57 @@ __global__ void __launch_bounds__(1024) outside_kernel(
   const float* qmN = qmN_g + (size_t)b * LL;    // qm(l, i) at [l][i]
   const float* qm1 = qm1_g + (size_t)b * LL;    // qm1(r, c) at [c][r]
   const float* qxN = kCofold ? qxN_g + (size_t)b * LL : nullptr;
-  float* om = om_s + (size_t)b * LL;            // om(i, m) at [m][i]
   float* ob = ob_o + (size_t)b * LL;            // ob(i, c) at [c][i]
   const float sg = sig_g[b];
   const int ct = kCofold ? cut_g[b] : 0;
+  // the instance's length (the fold sweeps the whole bucket) and the rows
+  // whose ob can be nonzero
+  const int nb = kCofold ? max(0, min(n_g[b], L)) : L;
+  const int nr = min(nb + 3, L);
   const bool row = i < L;
-  if (row)
-    for (int m = 0; m < L; ++m) om[(size_t)m * L + i] = 0.f;
-  const float q1pad = row ? q1pad_g[(size_t)b * L + i] : 0.f;
-  const float qBp = (kCofold && row) ? qBpref_g[(size_t)b * L + i] : 0.f;
+  const bool act = i < nr;
+  if (act)
+    for (int m = sub; m < nb; m += kT) om[(size_t)m * L + i] = 0.f;
+  if (row) {
+    for (int c = nb + sub; c < L; c += kT) ob[(size_t)c * L + i] = 0.f;
+    if (!act)
+      for (int c = sub; c < nb; c += kT) ob[(size_t)c * L + i] = 0.f;
+  }
+  const float q1pad = act ? q1pad_g[(size_t)b * L + i] : 0.f;
+  const float qBp = (kCofold && act) ? qBpref_g[(size_t)b * L + i] : 0.f;
   const float J1i = (kCofold && i == ct) ? 0.f : 1.f;
-  float pend = 0.f, sm1 = 0.f, ga = 0.f, wv = 0.f;
+  const int lhi = min(i, nb);              // qm(l, i) != 0 needs l < min(i, n)
   __syncthreads();
   const float smv = s_pw[0];
+  constexpr int R = 32 / kT;              // rows a warp
+  const float apw = pow_bits(s_pw, (tid & 31) / kT + 1);
+  const float aR = pow_bits(s_pw, R);
+  // carried into column c: om(i, c), its prefix scans (warp halves; their
+  // totals in s_tot), the direct term pend, the exposed-cut sum hb and
+  // qm^T om in s_qmt; all 0 at c = n-1
+  float omcol = 0.f, pend = 0.f, hb = 0.f, sm1 = 0.f, ga = 0.f, wv = 0.f;
+  float sv[kCofold ? 2 : 1] = {};
 
-  for (int j = 0; j < L; ++j) {
-    const int c = L - 1 - j;
+  for (int c = nb - 1; c >= 0; --c) {
+    if (kCofold && c + 1 == ct) {
+      // GA[i] = wvec[i-1] + sum_l qx(l, i-1) wvec[l-1]; qx(l, i) needs l <= i
+      if (row) {
+        float acc = 0.f;
+        for (int l = 1 + sub; l <= min(i, nb); l += kT)
+          acc += qxN[(size_t)l * L + i] * s_wv[l - 1];
+        acc = row_sum<kT>(acc);
+        if (lead) s_ga[i] = acc;
+      }
+      __syncthreads();
+      if (row) ga = i >= 1 ? s_wv[i - 1] + s_ga[i - 1] : 0.f;
+      __syncthreads();                     // s_wv is rewritten below
+    }
     // ---- om1 column c: pending direct term + ml_base prefix scan + qm^T om
-    const float omcol = row ? om[(size_t)c * L + i] : 0.f;
-    if (row) s_om[i] = omcol;
-    __syncthreads();
-    if (row) {
-      float acc = 0.f;
-      for (int l = 0; l < L; ++l) acc += qmN[(size_t)l * L + i] * s_om[l];
-      s_qmt[i] = acc;
-    }
-    float dterm = doubling_scan<false>(omcol, i, L, s_pw, s_scan);
-    if (kCofold) {
-      const float hi = doubling_scan<false>(i >= ct ? omcol : 0.f, i, L, s_pw,
-                                            s_scan2);
-      if (i >= ct) dterm = hi;
-    }
+    // (the cofold's second prefix scan starts at the cut)
+    scan_carry<false>(sv, apw, aR, s_tot);
+    const float dterm = (kCofold && i >= ct) ? sv[kCofold ? 1 : 0] : sv[0];
     float obcol = 0.f;
-    if (row) {
+    if (act) {
       const float qmt_dn = i >= 1 ? s_qmt[i - 1] : 0.f;
       float om1col;
       if (kCofold) {
@@ -108,50 +156,50 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       const float q2c1 = q2_g[(size_t)b * Lp + c + 1];
       obcol = q1pad * fat(FE, i, c) * q2c1;
       obcol = obcol + fat(FMB, i, c) * sm1;
-      // source-column mask of the mirrored window (cofold)
-      auto bm = [&](int k) -> float {
-        return (!kCofold || c >= ct || k < ct) ? 1.f : 0.f;
-      };
+      // the mirrored window's outer pair column k: below n, and (cofold)
+      // on the strand side of c, i.e. k < ct while c < ct
+      const int khi = (kCofold && c < ct) ? ct - 1 : nb - 1;
       // generic interior (mirror): outer pair (i-u1-1, c+1+u2)
       float gen = 0.f;
-      for (int u1 = 1; u1 < kMaxLoop; ++u1) {
+      const int u1hi = min(kMaxLoop - 1, i - 1);
+      for (int u1 = 1 + sub; u1 <= u1hi; u1 += kT) {
         const int r = i - u1 - 1;
-        if (r < 0) break;
+        const int u2hi = min(kMaxLoop - u1, khi - c - 1);
         float acc = 0.f;
-        for (int u2 = 1; u2 <= kMaxLoop - u1; ++u2) {
+        for (int u2 = 1; u2 <= u2hi; ++u2) {
           const int k = c + 1 + u2;
-          if (k >= L) break;
-          acc += ob[(size_t)k * L + r] * fat(MOUT, r, k) * bm(k)
-                 * s_w2[u1 * kW + u2];
+          acc += ringM[(k & (kRing - 1)) * L + r] * s_w2[u1 * kW + u2];
         }
         gen += (kCofold ? m5(u1 + 1, r, ct) : 1.f) * acc;
       }
-      obcol = obcol + gen * fat(MINN, i, c);
+      obcol = obcol + row_sum<kT>(gen) * fat(MINN, i, c);
       // bulges of size >= 2 (mirror)
       float b5 = 0.f, b3 = 0.f;
-      if (c + 1 < L) {
-        const float bm0 = bm(c + 1);
-        for (int m = 2; m <= kMaxLoop; ++m) {
+      if (c + 1 <= khi) {
+        const int mhi = min(kMaxLoop, i - 1);
+        for (int m = 2 + sub; m <= mhi; m += kT) {
           const int r = i - m - 1;
-          if (r < 0) break;
           b5 += s_bk[m] * (kCofold ? m5(m + 1, r, ct) : 1.f)
-                * (ob[(size_t)(c + 1) * L + r] * fat(TAU, r, c + 1) * bm0);
+                * ringA[((c + 1) & (kRing - 1)) * L + r];
         }
       }
       if (i >= 1) {
         const int r = i - 1;
-        for (int m = 2; m <= kMaxLoop; ++m) {
+        const int mhi = min(kMaxLoop, khi - c - 1);
+        for (int m = 2 + sub; m <= mhi; m += kT) {
           const int k = c + 1 + m;
-          if (k >= L) break;
-          b3 += ob[(size_t)k * L + r] * fat(TAU, r, k) * bm(k) * s_bk[m];
+          b3 += ringA[(k & (kRing - 1)) * L + r] * s_bk[m];
         }
+        b3 = row_sum<kT>(b3);
         if (kCofold) b3 *= m5(1, r, ct);
       }
+      b5 = row_sum<kT>(b5);
       obcol = obcol + fat(TAUR, i, c) * (b5 + b3);
       // stacks, small interiors, 1-bulges (mirror): outer (i-di, c+dj)
       auto sp = [&](int f, int di, int dj) -> float {
         const int r = i - di, k = c + dj;
-        return (r >= 0 && k < L) ? fat(f, r, k) * ob[(size_t)k * L + r] : 0.f;
+        return (r >= 0 && k < nb)
+                   ? fat(f, r, k) * ringR[(k & (kRaw - 1)) * L + r] : 0.f;
       };
       obcol = obcol + sp(PSTK, 1, 1);
       obcol = obcol + sp(P11, 2, 2);
@@ -160,97 +208,169 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       obcol = obcol + sp(P22, 3, 3);
       obcol = obcol + sp(PB15, 2, 1);
       obcol = obcol + sp(PB13, 1, 2);
-    }
-    if (kCofold) {
-      // exposed-cut segments: hb = sum_k vvec[k+1] qx(c+1, k) + vvec[c+1]
-      const int rrow = c + 1 < L ? c + 1 : L - 1;
-      float t = 0.f;
-      if (row && i + 1 < L) t = s_vvec[i + 1] * qxN[(size_t)rrow * L + i];
-      float hb = block_sum(t, s_red);
-      if (c + 1 < L) hb += s_vvec[c + 1];
-      if (row) obcol = obcol + (c >= ct ? hb : 0.f) * fat(FE, i, c) * qBp;
-      if (c + 1 == ct) {
-        // GA[i] = wvec[i-1] + sum_l qx(l, i-1) wvec[l-1]
-        if (row) {
-          float acc = 0.f;
-          for (int l = 1; l < L; ++l) acc += qxN[(size_t)l * L + i] * s_wv[l - 1];
-          s_scan2[i] = acc;
-        }
-        __syncthreads();
-        if (row) ga = i >= 1 ? s_wv[i - 1] + s_scan2[i - 1] : 0.f;
-        __syncthreads();
-      }
-      if (row) {
+      if (kCofold) {
+        // exposed-cut segments: hb = sum_k vvec[k+1] qx(c+1, k) + vvec[c+1]
+        obcol = obcol + (c >= ct ? hb : 0.f) * fat(FE, i, c) * qBp;
         const float qseg = c + 1 < L ? qxA_g[(size_t)b * L + c + 1] : 0.f;
         obcol = obcol + (c < ct ? qseg : 0.f) * fat(FE, i, c) * ga;
       }
+      obcol = clamp_huge(obcol);
+      if (lead) {
+        ringM[(c & (kRing - 1)) * L + i] = obcol * fat(MOUT, i, c);
+        ringA[(c & (kRing - 1)) * L + i] = obcol * fat(TAU, i, c);
+        ringR[(c & (kRaw - 1)) * L + i] = obcol;
+      }
     }
-    if (row) obcol = clamp_huge(obcol);
     // ---- scatters feeding later (smaller-c) steps
-    if (row) {
-      float a = obcol * fat(FMC, i, c) * sg * sg;
+    if (row && lead) {
+      float a = act ? obcol * fat(FMC, i, c) * sg * sg : 0.f;
       if (kCofold) a = m5(1, i, ct) * (a * (c != ct ? 1.f : 0.f));
       s_a[i] = a;
       const float J1n = (kCofold && i + 1 == ct) ? 0.f : 1.f;
       s_w1[i] = (c >= 1 && i + 1 < L) ? qm1[(size_t)(c - 1) * L + i + 1] * J1n
                                        : 0.f;
       s_w2v[i] = i + 1 < L ? qm1[(size_t)c * L + i + 1] * J1n : 0.f;
+      // om(i, c-1) is final: column c updates m <= c-2 only
+      s_omn[i] = (act && c >= 1) ? om[(size_t)(c - 1) * L + i] : 0.f;
     }
-    __syncthreads();
-    if (row) {
-      const float ash = i >= 1 ? s_a[i - 1] : 0.f;
-      for (int m = 0; m < c; ++m) {
-        float* p = om + (size_t)m * L + i;
-        *p = *p + ash * s_w1[m] + omcol * s_w2v[m];
-      }
-      float acc = 0.f;
-      for (int l = 1; l < L; ++l) acc += qmN[(size_t)l * L + i] * s_a[l - 1];
-      s_qmt[i] = acc;
-      ob[(size_t)c * L + i] = obcol;
-    }
-    __syncthreads();
-    if (row) pend = (kCofold ? J1i : 1.f) * (i >= 1 ? s_qmt[i - 1] : 0.f);
     if (kCofold) {
-      const float fcx = row ? fat(FCX, i, c) : 0.f;
+      const float fcx = act ? fat(FCX, i, c) : 0.f;
       float t = 0.f;
-      if (row && i + 1 < L) t = obcol * fcx * qxA_g[(size_t)b * L + i + 1];
-      const float vval = block_sum(t, s_red);
-      if (i == 0) s_vvec[c] = c >= ct ? vval : 0.f;
+      if (act && lead && i + 1 < L)
+        t = obcol * fcx * qxA_g[(size_t)b * L + i + 1];
+      warp_sum(t, s_red);
       if (row) {
         const float qxBr = qBpref_g[(size_t)b * L + c];
         wv = wv + (c >= ct ? 1.f : 0.f) * obcol * fcx * qxBr;
-        s_wv[i] = wv;
+        if (lead) s_wv[i] = wv;
       }
     }
     __syncthreads();
+    if (kCofold && tid == 0) s_vvec[c] = c >= ct ? sum_red(s_red) : 0.f;
+    if (act) {
+      const float ash = i >= 1 ? s_a[i - 1] : 0.f;
+      // w1[m], w2[m] = qm1(m+1, c-1), qm1(m+1, c) vanish past m = c-2
+      if (ash != 0.f || omcol != 0.f) {
+        for (int m = sub; m <= c - 2; m += kT) {
+          float* p = om + (size_t)m * L + i;
+          *p = *p + ash * s_w1[m] + omcol * s_w2v[m];
+        }
+      }
+      // qm^T ash for this column's pend, qm^T om for column c-1's om1
+      float accp = 0.f, accq = 0.f;
+      for (int l = sub; l < lhi; l += kT) {
+        const float q = qmN[(size_t)l * L + i];
+        if (l >= 1) accp += q * s_a[l - 1];
+        accq += q * s_omn[l];
+      }
+      accp = row_sum<kT>(accp);
+      accq = row_sum<kT>(accq);
+      if (lead) {
+        s_pend[i] = accp;
+        s_qmt[i] = accq;
+        ob[(size_t)c * L + i] = obcol;
+      }
+    }
+    omcol = row ? s_omn[i] : 0.f;
+    sv[0] = omcol;
+    if (kCofold) sv[kCofold ? 1 : 0] = i >= ct ? omcol : 0.f;
+    warp_scan<false, kT>(sv, s_pw, s_tot);
+    if (kCofold) {
+      // the next column's hb: qx(c, k) needs k >= c, vvec[k+1] is final
+      float t = 0.f;
+      if (row && lead && i >= c && i + 1 < L)
+        t = s_vvec[i + 1] * qxN[(size_t)c * L + i];
+      warp_sum(t, s_red2);
+    }
+    __syncthreads();
+    if (act) pend = (kCofold ? J1i : 1.f) * (i >= 1 ? s_pend[i - 1] : 0.f);
+    if (kCofold) hb = sum_red(s_red2) + s_vvec[c];
   }
 }
 
 }  // namespace rt
 
+namespace {
+
+// Shared memory of a block at mode kSmem (see outside_kernel).
+size_t outside_smem(int L, int smem) {
+  using namespace rt;
+  return sizeof(float) * (kW * kW + kW + kPow2 + 1 + 128 + 9 * (size_t)(L + 1)
+                          + (smem >= 1 ? ring_floats(L) : 0)
+                          + (smem == 2 ? (size_t)L * L : 0));
+}
+
+template <bool kCofold, int kSmem, int kT>
+void launch_outside(const float* F, const float* qm, const float* qm1,
+                    const float* q1pad, const float* q2, const float* w2k,
+                    const float* bulge_k, const float* sig, const float* pows,
+                    const int* cut, const int* n, const float* qx,
+                    const float* qxA, const float* qBpref, float* om,
+                    float* ob, float* ring, int B, int L, cudaStream_t st) {
+  using namespace rt;
+  const int threads = kT * ((L + 31) / 32) * 32;
+  const size_t shmem = outside_smem(L, kSmem);
+  cudaFuncSetAttribute(outside_kernel<kCofold, kSmem, kT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  outside_kernel<kCofold, kSmem, kT><<<B, threads, shmem, st>>>(
+      F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, n, qx, qxA, qBpref,
+      om, ob, ring, B, L);
+}
+
+// threads a row: four, else two, where a block of 1024 holds them and the
+// rings are in shared memory; else one
+template <bool kCofold, int kSmem>
+void launch_outside(const float* F, const float* qm, const float* qm1,
+                    const float* q1pad, const float* q2, const float* w2k,
+                    const float* bulge_k, const float* sig, const float* pows,
+                    const int* cut, const int* n, const float* qx,
+                    const float* qxA, const float* qBpref, float* om,
+                    float* ob, float* ring, int B, int L, cudaStream_t st) {
+#define RT_OUTSIDE(T)                                                        \
+  launch_outside<kCofold, kSmem, T>(F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, \
+                                    pows, cut, n, qx, qxA, qBpref, om, ob,   \
+                                    ring, B, L, st)
+  const int rows = ((L + 31) / 32) * 32;
+  if constexpr (kSmem >= 1) {
+    if (4 * rows <= 1024) { RT_OUTSIDE(4); return; }
+    if (2 * rows <= 1024) { RT_OUTSIDE(2); return; }
+  }
+  RT_OUTSIDE(1);
+#undef RT_OUTSIDE
+}
+
+}  // namespace
+
+// Bytes of shared memory a block takes at mode smem (0: rings and om in
+// device memory, 1: rings in shared memory, 2: rings and om there).
+extern "C" long long rt_outside_smem(int L, int smem) {
+  return (long long)outside_smem(L, smem);
+}
+
+// ring == nullptr: the rings live in shared memory; om == nullptr too: so
+// does om (the caller picks the mode with rt_outside_smem).
 extern "C" int rt_outside(const float* F, const float* qm, const float* qm1,
                           const float* q1pad, const float* q2, const float* w2k,
                           const float* bulge_k, const float* sig,
-                          const float* pows, const int* cut, const float* qx,
-                          const float* qxA, const float* qBpref, float* om,
-                          float* ob, int B, int L, int cofold, void* stream) {
-  using namespace rt;
-  const int threads = ((L + 31) / 32) * 32;
-  const size_t shmem =
-      sizeof(float) * (kW * kW + kW + kPow2 + 1 + 32 + 9 * (size_t)(L + 1));
+                          const float* pows, const int* cut, const int* n,
+                          const float* qx, const float* qxA,
+                          const float* qBpref, float* om, float* ob,
+                          float* ring, int B, int L, int cofold,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = ring != nullptr ? 0 : (om != nullptr ? 1 : 2);
+#define RT_OUTSIDE(CO, SM)                                                   \
+  launch_outside<CO, SM>(F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, \
+                         n, qx, qxA, qBpref, om, ob, ring, B, L, st)
   if (cofold) {
-    cudaFuncSetAttribute(outside_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    outside_kernel<true><<<B, threads, shmem, st>>>(
-        F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, qx, qxA, qBpref,
-        om, ob, B, L);
+    if (smem == 0) RT_OUTSIDE(true, 0);
+    else if (smem == 1) RT_OUTSIDE(true, 1);
+    else RT_OUTSIDE(true, 2);
   } else {
-    cudaFuncSetAttribute(outside_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    outside_kernel<false><<<B, threads, shmem, st>>>(
-        F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, qx, qxA, qBpref,
-        om, ob, B, L);
+    if (smem == 0) RT_OUTSIDE(false, 0);
+    else if (smem == 1) RT_OUTSIDE(false, 1);
+    else RT_OUTSIDE(false, 2);
   }
+#undef RT_OUTSIDE
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
+SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block on the H100
+RING_ROWS = 68             # the scans' column rings: 2 x 32 window + 4 raw
+
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
 
@@ -106,8 +109,12 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             dll = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
-            dll.rt_inside.argtypes = [P] * 6 + [P] * 5 + [I, I, I, P]
-            dll.rt_outside.argtypes = [P] * 15 + [I, I, I, P]
+            dll.rt_inside.argtypes = [P] * 7 + [P] * 6 + [I, I, I, P]
+            dll.rt_outside.argtypes = [P] * 17 + [I, I, I, P]
+            dll.rt_inside_smem.argtypes = [I]
+            dll.rt_outside_smem.argtypes = [I, I]
+            for f in (dll.rt_inside_smem, dll.rt_outside_smem):
+                f.restype = ctypes.c_longlong
             dll.rt_q2.argtypes = [P] * 4 + [I, I, P]
             dll.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 3 + [P]
             dll.rt_duplex_smem.argtypes = [I, I]
@@ -136,8 +143,9 @@ def _expect(t, shape, dtype=torch.float32) -> None:
         raise ValueError("CUDA kernels take contiguous tensors")
 
 
-def _check_common(F, w2k, bulge_k, sig, pows, cut):
-    """Shapes shared by the scans; returns (B, L)."""
+def _check_common(F, w2k, bulge_k, sig, pows, cut, n=None):
+    """Shapes shared by the scans; returns (B, L, n): the cofold's lengths
+    n default to the whole bucket."""
     NF, B, L, _ = F.shape
     if L > 1024:
         raise ValueError(f"one thread per row: L={L} exceeds 1024")
@@ -148,7 +156,10 @@ def _check_common(F, w2k, bulge_k, sig, pows, cut):
     _expect(pows, (B, POW2))
     if cut is not None:
         _expect(cut, (B,), torch.int32)
-    return B, L
+        if n is None:
+            n = torch.full((B,), L, dtype=torch.int32, device=F.device)
+        _expect(n, (B,), torch.int32)
+    return B, L, n
 
 
 def _run(name: str, fn, *args) -> None:
@@ -162,35 +173,54 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def launch_inside(F, w2k, bulge_k, sig, pows, cut=None):
-    """K1 (cut None) / K4: returns (qm1_c, qb_c, qm_c, qm2_c or qx_c, q1)."""
-    B, L = _check_common(F, w2k, bulge_k, sig, pows, cut)
+def launch_inside(F, w2k, bulge_k, sig, pows, cut=None, n=None):
+    """K1 (cut None) / K4: returns (qm1_c, qb_c, qm_c, qm2_c or qx_c, q1).
+    K4 takes the lengths n [B] int32 (None: the whole bucket) and sweeps
+    each instance's n columns; the padding it fills after the sweep."""
+    B, L, n = _check_common(F, w2k, bulge_k, sig, pows, cut, n)
     e = lambda *s: torch.empty(*s, dtype=torch.float32, device=F.device)
     qm1, qb, qm, aux, q1 = e(B, L, L), e(B, L, L), e(B, L, L), e(B, L, L), \
         e(B, L)
     name = "inside" if cut is None else "co_inside"
-    _run(name, lib().rt_inside, _ptr(F), _ptr(w2k), _ptr(bulge_k), _ptr(sig),
-         _ptr(pows), _ptr(cut), _ptr(qm1), _ptr(qb), _ptr(qm), _ptr(aux),
-         _ptr(q1), B, L, int(cut is not None), _stream())
+    dll = lib()
+    # the column rings in shared memory where they fit, else device memory
+    ring = None
+    if dll.rt_inside_smem(L) > SMEM_PER_BLOCK:
+        ring = torch.empty(B, RING_ROWS, L, dtype=torch.float32,
+                           device=F.device)
+    _run(name, dll.rt_inside, _ptr(F), _ptr(w2k), _ptr(bulge_k), _ptr(sig),
+         _ptr(pows), _ptr(cut), _ptr(n), _ptr(qm1), _ptr(qb), _ptr(qm),
+         _ptr(aux), _ptr(q1), _ptr(ring), B, L, int(cut is not None),
+         _stream())
     return qm1, qb, qm, aux, q1
 
 
 def launch_outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig, pows,
-                   cut=None, qxN=None, qxA=None, qBpref=None):
-    """K2 (cut None) / K5: returns ob_c."""
-    B, L = _check_common(F, w2k, bulge_k, sig, pows, cut)
+                   cut=None, qxN=None, qxA=None, qBpref=None, n=None):
+    """K2 (cut None) / K5: returns ob_c.  K5 takes the lengths n [B] int32
+    (None: the whole bucket) and sweeps each instance's n columns."""
+    B, L, n = _check_common(F, w2k, bulge_k, sig, pows, cut, n)
     for t in (qmN, qm1_c) + ((qxN,) if cut is not None else ()):
         _expect(t, (B, L, L))
     for t in (q1pad,) + ((qxA, qBpref) if cut is not None else ()):
         _expect(t, (B, L))
     _expect(q2, (B, L + 1))
-    om = torch.empty(B, L, L, dtype=torch.float32, device=F.device)
     ob = torch.empty(B, L, L, dtype=torch.float32, device=F.device)
     name = "outside" if cut is None else "co_outside"
-    _run(name, lib().rt_outside, _ptr(F), _ptr(qmN), _ptr(qm1_c),
+    dll = lib()
+    # the rings and the om table in shared memory where they fit, else the
+    # om table, else both in device memory
+    om = ring = None
+    if dll.rt_outside_smem(L, 2) > SMEM_PER_BLOCK:
+        om = torch.empty(B, L, L, dtype=torch.float32, device=F.device)
+        if dll.rt_outside_smem(L, 1) > SMEM_PER_BLOCK:
+            ring = torch.empty(B, RING_ROWS, L, dtype=torch.float32,
+                               device=F.device)
+    _run(name, dll.rt_outside, _ptr(F), _ptr(qmN), _ptr(qm1_c),
          _ptr(q1pad), _ptr(q2), _ptr(w2k), _ptr(bulge_k), _ptr(sig),
-         _ptr(pows), _ptr(cut), _ptr(qxN), _ptr(qxA), _ptr(qBpref), _ptr(om),
-         _ptr(ob), B, L, int(cut is not None), _stream())
+         _ptr(pows), _ptr(cut), _ptr(n), _ptr(qxN), _ptr(qxA), _ptr(qBpref),
+         _ptr(om), _ptr(ob), _ptr(ring), B, L, int(cut is not None),
+         _stream())
     return ob
 
 
@@ -206,7 +236,6 @@ def launch_q2(qbe, sig, n):
     return q2
 
 
-SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block on the H100
 
 
 def launch_duplex_sweep(fac, w2, bk, n1, n2):

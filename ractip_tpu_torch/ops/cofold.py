@@ -24,23 +24,30 @@ from ..params.boltz import TorchTables, sig_tables
 from ..utils.timing import stage
 
 
-def co_inside(F, w2k, bulge_k, sig, pows, cut):
-    """K4: cut-aware inside scan -> (qm1_c, qb_c, qm_c, qx_c, q1)."""
+def _lengths(n):
+    return None if n is None else n.to(torch.int32).contiguous()
+
+
+def co_inside(F, w2k, bulge_k, sig, pows, cut, n=None):
+    """K4: cut-aware inside scan -> (qm1_c, qb_c, qm_c, qx_c, q1).  n [B]:
+    the concatenations' lengths (None: the whole bucket); the kernel sweeps
+    only those, the plain version everything (the tables agree either way,
+    padding included)."""
     if _on_cpu(F):
         return inside_plain(F, w2k, bulge_k, sig, pows, cut)
     return _cuda.launch_inside(F, w2k, bulge_k, sig, pows,
-                               cut.to(torch.int32).contiguous())
+                               cut.to(torch.int32).contiguous(), _lengths(n))
 
 
 def co_outside(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v, w2k, bulge_k,
-               sig, pows, cut):
-    """K5: cut-aware outside scan -> ob_c."""
+               sig, pows, cut, n=None):
+    """K5: cut-aware outside scan -> ob_c (n as for co_inside)."""
     if _on_cpu(F):
         return co_outside_plain(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v,
                                 w2k, bulge_k, sig, pows, cut)
     return _cuda.launch_outside(F, qmN, qm1_c, q1pad, q2v, w2k, bulge_k, sig,
                                 pows, cut.to(torch.int32).contiguous(), qxN,
-                                qxA, qBpref)
+                                qxA, qBpref, _lengths(n))
 
 
 def co_outside_plain(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v, w2k,
@@ -71,7 +78,8 @@ def _co_inside_once(tt: TorchTables, S, n, cut, es, timer=None):
         ff = co_factors(tt, S, n, cut, sig)
         F = stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
-    qm1_c, qb_c, qm_c, qx_c, q1 = co_inside(F, w2k, bulge_k, sig, pows, cut)
+    qm1_c, qb_c, qm_c, qx_c, q1 = co_inside(F, w2k, bulge_k, sig, pows, cut,
+                                            n)
     qb, qx = qb_c.transpose(1, 2), qx_c.transpose(1, 2)
     zn = q1.gather(1, (n - 1).clamp(min=0)[:, None])[:, 0]
     q2v = q2((qb * ff.fe).contiguous(), sig, n)
@@ -146,7 +154,7 @@ def batch_cofold(tables, S1, S2, n1, n2, device, max_iter: int = 8,
     qxA, qBpref = exterior_vectors(qx, cut)
     ob_c = co_outside(aux["F"], ins["qm"].contiguous(), aux["qm1_c"], qx,
                       qxA, qBpref, q1pad, ins["q2"], aux["w2k"],
-                      aux["bulge_k"], sig, aux["pows"], cut)
+                      aux["bulge_k"], sig, aux["pows"], cut, n)
     ob = ob_c.transpose(1, 2)
     bpp = pair_probs(ins["qb"], ob, ins["zn"])
     hp = cross_block(bpp, n1, n2, L1, L2)

@@ -4,9 +4,10 @@ These need a CUDA GPU and nvcc; without them each test skips (decided in
 the fixture, so every worker collects the same tests).  Run on the GPU
 with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 (--noconftest skips tests/conftest.py, which imports jax; this file does not.)
-Tolerances: inside states and ob rtol 1e-4 (f32 summation order), pair
-probabilities atol 1e-5; the duplex sweeps (K6) in the log domain to atol
-5e-4 with identical support, as the JAX package gates its Pallas sweep."""
+Tolerances: inside states and ob rtol 1e-4 (f32 summation order; 1e-3 at
+Lc = 1024, the gate of the Lc = 288 corpus shape), pair probabilities atol
+1e-5; the duplex sweeps (K6) in the log domain to atol 5e-4 with identical
+support, as the JAX package gates its Pallas sweep."""
 
 import numpy as np
 import pytest
@@ -94,6 +95,53 @@ def test_cofold_kernels_match_plain(dev):
     oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, qx, qxA, qBpref,
              q1pad, q2v, w2k, bulge_k, sig, pows, cut)
     _close(tc.co_outside(*oargs), tc.co_outside_plain(*oargs), 1e-4)
+
+
+def test_cofold_kernels_length_aware_match_plain(dev):
+    """K4 and K5 given the lengths: n < L, the cut at both edges (cut = 1,
+    cut = n - 1), and at Lc = 1024 (column rings in device memory).  Whole
+    tables, padding included: the same non-finite cells, values within the
+    tolerance, a relaunch bit-identical."""
+    _length_aware_case(dev, 24, [1, 20, 24, 13, 1], [17, 1, 24, 9, 1], 1e-4)
+    _length_aware_case(dev, 512, [480], [500], 1e-3)
+
+
+def _length_aware_case(dev, L1, N1, N2, rtol):
+    L2 = L1
+    rng = np.random.default_rng(8)
+    rs = lambda k: "".join(rng.choice(list("ACGU"), k))
+    t = lambda a: torch.as_tensor(np.stack(a), device=dev)
+    S1 = t([encode(rs(m), L1) for m in N1]).long()
+    S2 = t([encode(rs(m), L2) for m in N2]).long()
+    n1, n2 = torch.tensor(N1, device=dev), torch.tensor(N2, device=dev)
+    tt = ts.as_tables(get_default_params(), dev)
+    S = tc._pack_concat(S1, S2, n1)
+    n, cut = n1 + n2, n1
+    sig = torch.exp(-torch.full((len(N1),), ts.SCALE_E0, device=dev)
+                    / tt.scalar(tt.bt.kt))
+    ff = co_factors(tt, S, n, cut, sig)
+    F = ts.stack_cols(ff)
+    w2k, bulge_k, pows = sig_tables(tt, sig)
+    args = (F, w2k, bulge_k, sig, pows, cut)
+
+    def same(k, k2, p):
+        for a, a2, b in zip(k, k2, p):
+            assert torch.equal(a, a2)
+            assert torch.equal(a.isfinite(), b.isfinite())
+            fin = b.isfinite()
+            _close(a[fin], b[fin], rtol)
+
+    kout = tc.co_inside(*args, n=n)
+    same(kout, tc.co_inside(*args, n=n), ts.inside_plain(*args))
+    qm1_c, qb_c, qm_c, qx_c, q1 = kout
+    q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+    q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
+    qx = qx_c.transpose(1, 2).contiguous()
+    qxA, qBpref = tc.exterior_vectors(qx, cut)
+    oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, qx, qxA, qBpref,
+             q1pad, q2v, w2k, bulge_k, sig, pows, cut)
+    same((tc.co_outside(*oargs, n=n),), (tc.co_outside(*oargs, n=n),),
+         (tc.co_outside_plain(*oargs),))
 
 
 def test_batch_fold_cuda_matches_cpu(dev):

@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Run the scan kernels' CUDA sources (K1/K4 inside.cu, K2/K5 outside.cu) on
+the CPU and hold them against their plain PyTorch versions.
+
+    python3 tools/cuda_emu/emulate.py fold L            # K1, K2 at bucket L
+    python3 tools/cuda_emu/emulate.py cofold L1 [B] [dES]  # K4, K5, Lc = 2 L1
+
+For a machine without nvcc or a GPU: g++ compiles the sources against
+tools/cuda_emu/cuda_runtime.h (one std::thread per CUDA thread, barriers
+for __syncthreads and for the lanes each shuffle names, shared memory a
+NaN-filled heap buffer) with AddressSanitizer, and the port's launchers
+call the result through ctypes on CPU tensors.  A shuffle whose lanes do
+not all arrive hangs, a lane outside its mask aborts, and an out-of-bounds
+access stops the run with ASan's report.  It shows logic and indexing
+faults; it says nothing of speed, of the compiler's code for the card, or
+of faults only the card's memory model shows.  The cofold batch holds the
+cut at both edges; dES raises every scale energy (small sigma: the
+subnormal padding path).  The build goes to tools/cuda_emu/build/.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent.parent
+BUILD = HERE / "build"
+
+
+def build() -> Path:
+    """Translate the launches (<<<...>>> -> emu::launch) and compile."""
+    BUILD.mkdir(exist_ok=True)
+    csrc = ROOT / "ractip_tpu_torch" / "csrc"
+    srcs = []
+    for name in ("inside", "outside"):
+        src = (csrc / f"{name}.cu").read_text()
+        src = src.replace("extern __shared__ float sh[];",
+                          "float* sh = emu::g_sh;")
+        src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
+                     lambda m: "emu::launch(%s, [&]() { %s(%s); });" % (
+                         m.group(2), m.group(1), m.group(3)), src, flags=re.S)
+        out = BUILD / f"{name}.cpp"
+        out.write_text(src)
+        srcs.append(str(out))
+    lib = BUILD / "libemu.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-g", "-fPIC", "-shared",
+                    "-fsanitize=address", "-w", f"-I{HERE}", f"-I{csrc}",
+                    *srcs, "-o", str(lib), "-lpthread"], check=True)
+    return lib
+
+
+def main() -> int:
+    if "LD_PRELOAD" not in os.environ:    # ASan must be loaded first
+        asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                              capture_output=True, text=True).stdout.strip()
+        lib = build()
+        env = dict(os.environ, LD_PRELOAD=asan,
+                   ASAN_OPTIONS="detect_leaks=0", EMU_LIB=str(lib))
+        return subprocess.run([sys.executable, __file__, *sys.argv[1:]],
+                              env=env).returncode
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.ops import cofold as tc
+    from ractip_tpu_torch.ops import scan as ts
+    from ractip_tpu_torch.ops.factors import co_factors, fold_factors
+    from ractip_tpu_torch.ops.seq import encode
+    from ractip_tpu_torch.params.boltz import sig_tables
+    from ractip_tpu_torch.params.tables import get_default_params
+
+    lib = ctypes.CDLL(os.environ["EMU_LIB"])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rt_inside.argtypes = [P] * 13 + [I, I, I, P]
+    lib.rt_outside.argtypes = [P] * 17 + [I, I, I, P]
+    lib.rt_inside_smem.argtypes = [I]
+    lib.rt_outside_smem.argtypes = [I, I]
+    for f in (lib.rt_inside, lib.rt_outside):
+        f.restype = I
+    for f in (lib.rt_inside_smem, lib.rt_outside_smem):
+        f.restype = ctypes.c_longlong
+    # the launchers, on CPU tensors
+    _cuda._lib, _cuda._stream = lib, lambda: None
+    _cuda._expect = lambda *a, **k: None
+    torch.set_num_threads(2)
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        if not torch.equal(a.isfinite(), b.isfinite()):
+            return float("inf")
+        nz = b != 0
+        if bool((a[~nz].abs() > 1e-30).any()):
+            return float("inf")
+        d = (a - b).abs()
+        return float((d[nz] / b.abs()[nz]).max()) if bool(nz.any()) else 0.0
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    tt = ts.as_tables(get_default_params(), "cpu")
+    rng = np.random.default_rng(1)
+    rs = lambda k: "".join(rng.choice(list("ACGU"), k))
+    enc = lambda ls, L: torch.as_tensor(np.stack([encode(rs(m), L)
+                                                  for m in ls])).long()
+    a = sys.argv[1:]
+    if a[0] == "fold":
+        L = int(a[1])
+        ns = [L, L - 7, L // 2]
+        S, n = enc(ns, L), torch.tensor(ns)
+        sig = torch.exp(-torch.full((3,), ts.SCALE_E0) / tt.scalar(tt.bt.kt))
+        ff = fold_factors(tt, S, n, sig)
+        F = ts.stack_cols(ff)
+        w2k, bulge_k, pows = sig_tables(tt, sig)
+        args = (F, w2k, bulge_k, sig, pows)
+        k, s = timed(lambda: _cuda.launch_inside(*args))
+        p = ts.inside_plain(*args)
+        print(f"K1 max rel {max(rel(x, y) for x, y in zip(k, p)):.3e} "
+              f"({s:.1f} s)", flush=True)
+        qm1_c, qb_c, qm_c, _, q1 = p
+        qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+        q2v = ts.q2_plain(qbe, sig, n.to(torch.int32))
+        q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1)
+        oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c,
+                 q1pad.contiguous(), q2v, w2k, bulge_k, sig, pows)
+        o, s = timed(lambda: _cuda.launch_outside(*oargs))
+        print(f"K2 max rel {rel(o, ts.outside_plain(*oargs)):.3e} "
+              f"({s:.1f} s)", flush=True)
+        return 0
+    L1 = int(a[1])
+    B = int(a[2]) if len(a) > 2 else 5
+    N1 = [1, L1 - 3, L1, 5, 1][:B]           # cut = 1, a full s1
+    N2 = [L1 - 5, 1, L1, 9, 1][:B]           # cut = n - 1, a full bucket
+    S1, S2 = enc(N1, L1), enc(N2, L1)
+    n1, n2 = torch.tensor(N1), torch.tensor(N2)
+    es = tc.batch_cofold(tt, S1, S2, n1, n2, "cpu")["es"]
+    es = es + (float(a[3]) if len(a) > 3 else 0.0)
+    S = tc._pack_concat(S1, S2, n1)
+    n, cut = n1 + n2, n1
+    sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+    ff = co_factors(tt, S, n, cut, sig)
+    F = ts.stack_cols(ff)
+    w2k, bulge_k, pows = sig_tables(tt, sig)
+    c32, n32 = cut.to(torch.int32), n.to(torch.int32)
+    args = (F, w2k, bulge_k, sig, pows)
+    k, s = timed(lambda: _cuda.launch_inside(*args, c32, n32))
+    p = ts.inside_plain(*args, cut)
+    print(f"K4 max rel {max(rel(x, y) for x, y in zip(k, p)):.3e} "
+          f"({s:.1f} s)", flush=True)
+    qm1_c, qb_c, qm_c, qx_c, q1 = p
+    q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+    q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]],
+                      1).contiguous()
+    qx = qx_c.transpose(1, 2).contiguous()
+    qxA, qBpref = tc.exterior_vectors(qx, cut)
+    qmN = qm_c.transpose(1, 2).contiguous()
+    o, s = timed(lambda: _cuda.launch_outside(
+        F, qmN, qm1_c, q1pad, q2v, w2k, bulge_k, sig, pows, c32, qx, qxA,
+        qBpref, n32))
+    po = tc.co_outside_plain(F, qmN, qm1_c, qx, qxA, qBpref, q1pad, q2v, w2k,
+                             bulge_k, sig, pows, cut)
+    print(f"K5 max rel {rel(o, po):.3e} ({s:.1f} s)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
