@@ -27,6 +27,48 @@ __host__ __device__ inline size_t ring_floats(int L) {
   return (size_t)(2 * kRing + kRaw) * L;
 }
 
+// Placement of a scan's large arrays (the kSmem template bits): each set
+// bit puts one in shared memory, else it lives in device memory.
+constexpr int kRingS = 1;     // the column rings
+constexpr int kOmS = 2;       // the outside scans' om table
+constexpr int kQmS = 4;       // the qm table, packed as a strict triangle
+constexpr int kSmemBlock = 232448;   // opt-in shared memory of one block
+constexpr int kSmemSM = 233472;      // shared memory of one SM (1 KB a
+                                     // block is the runtime's)
+
+// A strictly upper triangular L x L table packed by columns: column l holds
+// rows 0..l-1 from tri(l) on (L (L-1) / 2 floats in all).
+__host__ __device__ inline int tri(int l) { return l * (l - 1) / 2; }
+
+// Blocks of `smem` bytes that fit one SM by shared memory alone.
+inline int blocks_by_smem(size_t smem) {
+  return (int)(kSmemSM / (smem + 1024));
+}
+
+// A scan variant's launch: its kernel (V::fn), threads and shared memory.
+// Blocks of it an SM, threads, shared memory and registers together (0 if
+// the runtime cannot say).
+template <class V>
+int blocks_per_sm(const V& v) {
+  cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)v.smem);
+  int nb = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, v.fn, v.threads,
+                                                    v.smem) != cudaSuccess)
+    return 0;
+  return nb;
+}
+
+// Waves of B blocks of v on the card (a large count where v cannot run).
+template <class V>
+int waves(const V& v, int B) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int per = blocks_per_sm(v) * sms;
+  return per > 0 ? (B + per - 1) / per : 1 << 30;
+}
+
 enum Field {
   FHN = 0, PSTK, P11, P21A, P21B, P22, PB15, PB13, TAU, TAUR, MOUT, MINN,
   FMB, FMC, FE, FCX

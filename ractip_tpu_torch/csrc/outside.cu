@@ -12,33 +12,40 @@
 // om and qm^T ash, fused into one pass), the window adjoints (up to 435
 // terms a cell) and a rank-1 update of the om table (O(c) per row).
 //
-// Design: one block per instance, kT threads per row i (four where the
-// block holds them and the rings are in shared memory, else two or one),
-// splitting the row's window, bulges, contraction and om update and summing
-// with shuffles.  The rank-1 scatter om[i, m] += ash[i] w1[m] + omcol[i]
-// w2[m] has no race because row i's threads own its entries (each its own
-// m); om lives in shared memory where it fits beside the rings (L <= 200),
-// else in a device-memory scratch the wrapper allocates.  The W-deep
-// rolling ob buffers of the TPU kernel become rings of the last 32 columns
-// of ob * mout and ob * tau (and the last 4 raw ob columns), written once
-// per column, in shared memory where the 68 L floats fit, else in device
-// memory.  Loops run only over terms that can be nonzero: ob vanishes in
-// the cofold's columns past n and in its rows past n + 2 (the stack and
-// small-loop terms reach three rows below an inner pair), qm is strictly
-// upper triangular and zero past row n, and qm1(m+1, c) needs m <= c-2; so
-// the sweep starts at c = n-1 with every carried vector zero, the
-// contraction stops at l < min(i, n) and the window at column n-1.  Two
-// barriers a column: om(., c-1) is final once column c+1 is done (column c
-// updates m <= c-2 only), so column c already scans it (shuffle scans
-// inside each warp, one carry across warps), contracts it with qm together
-// with ash, and sums the next column's exposed-cut term; the block sums
-// are warp sums read after the next barrier.
+// Design: one block per instance, kT threads per row i, splitting the
+// row's window, bulges, contraction and om update and summing with
+// shuffles.  The rank-1 scatter om[i, m] += ash[i] w1[m] + omcol[i] w2[m]
+// has no race because row i's threads own its entries (each its own m).
+// The W-deep rolling ob buffers of the TPU kernel become rings of the last
+// 32 columns of ob * mout and ob * tau (and the last 4 raw ob columns),
+// written once per column.  Placement (kSmem) and threads a row, chosen by
+// the launcher: the rings in shared memory where the 68 L floats fit, om
+// (L x L) beside them where it fits (L <= 200), and a copy of qm's rows
+// l < n, staged once as a packed strict triangle (rows of a warp on
+// consecutive banks), where it fits too; four threads a row where a block
+// of 1024 holds them, else two or one.  For the fold, where four threads a
+// row with om in shared memory need more waves of the batch than two with
+// om in device memory (512 blocks at L = 96: 2 blocks an SM against 4),
+// the launcher takes the latter.  om is not packed: the outputs below the
+// diagonal, which the plain version also computes, read its entries there.
+// Loops run only over terms that can be nonzero: ob vanishes in the
+// columns past n and in the rows past n + 2 (the stack and small-loop
+// terms reach three rows below an inner pair), qm is strictly upper
+// triangular and zero past row n, and qm1(m+1, c) needs m <= c-2; so the
+// sweep starts at c = n-1 with every carried vector zero, the contraction
+// stops at l < min(i, n) and the window at column n-1.  The hot loops are
+// unrolled by 4 so that their loads overlap.  Two barriers a column:
+// om(., c-1) is final once column c+1 is done (column c updates m <= c-2
+// only), so column c already scans it (shuffle scans inside each warp, one
+// carry across warps), contracts it with qm together with ash, and sums
+// the next column's exposed-cut term; the block sums are warp sums read
+// after the next barrier.
 #include "dp_common.cuh"
 
 namespace rt {
 
-// kSmem: 0 = rings and om in device memory, 1 = rings in shared memory,
-// 2 = rings and om in shared memory.
+// kSmem: which of the rings (kRingS), the om table (kOmS) and a packed copy
+// of the resident qm table (kQmS) live in shared memory.
 template <bool kCofold, int kSmem, int kT>
 __global__ void __launch_bounds__(1024) outside_kernel(
     const float* __restrict__ F, const float* __restrict__ qmN_g,
@@ -72,12 +79,17 @@ __global__ void __launch_bounds__(1024) outside_kernel(
   float* s_vvec = s_ga + Lp;              // spanning-pair adjoints (cofold)
   float* s_wv = s_vvec + Lp;              // wvec (cofold)
   // rings: OM = ob * mout, OA = ob * tau (slot k % 32), R = ob (slot k % 4)
-  float* ringM = kSmem >= 1 ? s_wv + Lp : ring_g + (size_t)b * ring_floats(L);
+  float* ringM = (kSmem & kRingS) ? s_wv + Lp
+                                  : ring_g + (size_t)b * ring_floats(L);
   float* ringA = ringM + (size_t)kRing * L;
   float* ringR = ringA + (size_t)kRing * L;
   const size_t LL = (size_t)L * L;
   // om(i, m) at [m][i]
-  float* om = kSmem == 2 ? ringR + (size_t)kRaw * L : om_s + (size_t)b * LL;
+  float* om = (kSmem & kOmS) ? ringR + (size_t)kRaw * L : om_s + (size_t)b * LL;
+  // qm(l, i), l < i, at s_qmT[qrow(l) + i]: row l of the strict upper
+  // triangle packed by rows, so the rows i of a warp read consecutive banks
+  float* s_qmT = (kSmem & kOmS) ? om + LL : ringR + (size_t)kRaw * L;
+  auto qrow = [&](int l) -> int { return l * (L - 2) - tri(l) - 1; };
 
   for (int t = tid; t < kW * kW; t += blockDim.x)
     s_w2[t] = w2k_g[b * kW * kW + t];
@@ -95,9 +107,8 @@ __global__ void __launch_bounds__(1024) outside_kernel(
   float* ob = ob_o + (size_t)b * LL;            // ob(i, c) at [c][i]
   const float sg = sig_g[b];
   const int ct = kCofold ? cut_g[b] : 0;
-  // the instance's length (the fold sweeps the whole bucket) and the rows
-  // whose ob can be nonzero
-  const int nb = kCofold ? max(0, min(n_g[b], L)) : L;
+  // the instance's length and the rows whose ob can be nonzero
+  const int nb = max(0, min(n_g[b], L));
   const int nr = min(nb + 3, L);
   const bool row = i < L;
   const bool act = i < nr;
@@ -112,6 +123,11 @@ __global__ void __launch_bounds__(1024) outside_kernel(
   const float qBp = (kCofold && act) ? qBpref_g[(size_t)b * L + i] : 0.f;
   const float J1i = (kCofold && i == ct) ? 0.f : 1.f;
   const int lhi = min(i, nb);              // qm(l, i) != 0 needs l < min(i, n)
+  if (kSmem & kQmS) {                      // stage qm's rows l < n once
+    for (int l = tid >> 5; l < nb; l += blockDim.x >> 5)
+      for (int c = l + 1 + (tid & 31); c < L; c += 32)
+        s_qmT[qrow(l) + c] = qmN[(size_t)l * L + c];
+  }
   __syncthreads();
   const float smv = s_pw[0];
   constexpr int R = 32 / kT;              // rows a warp
@@ -166,6 +182,7 @@ __global__ void __launch_bounds__(1024) outside_kernel(
         const int r = i - u1 - 1;
         const int u2hi = min(kMaxLoop - u1, khi - c - 1);
         float acc = 0.f;
+#pragma unroll 4
         for (int u2 = 1; u2 <= u2hi; ++u2) {
           const int k = c + 1 + u2;
           acc += ringM[(k & (kRing - 1)) * L + r] * s_w2[u1 * kW + u2];
@@ -177,6 +194,7 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       float b5 = 0.f, b3 = 0.f;
       if (c + 1 <= khi) {
         const int mhi = min(kMaxLoop, i - 1);
+#pragma unroll 4
         for (int m = 2 + sub; m <= mhi; m += kT) {
           const int r = i - m - 1;
           b5 += s_bk[m] * (kCofold ? m5(m + 1, r, ct) : 1.f)
@@ -186,6 +204,7 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       if (i >= 1) {
         const int r = i - 1;
         const int mhi = min(kMaxLoop, khi - c - 1);
+#pragma unroll 4
         for (int m = 2 + sub; m <= mhi; m += kT) {
           const int k = c + 1 + m;
           b3 += ringA[(k & (kRing - 1)) * L + r] * s_bk[m];
@@ -251,6 +270,7 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       const float ash = i >= 1 ? s_a[i - 1] : 0.f;
       // w1[m], w2[m] = qm1(m+1, c-1), qm1(m+1, c) vanish past m = c-2
       if (ash != 0.f || omcol != 0.f) {
+#pragma unroll 4
         for (int m = sub; m <= c - 2; m += kT) {
           float* p = om + (size_t)m * L + i;
           *p = *p + ash * s_w1[m] + omcol * s_w2v[m];
@@ -258,8 +278,10 @@ __global__ void __launch_bounds__(1024) outside_kernel(
       }
       // qm^T ash for this column's pend, qm^T om for column c-1's om1
       float accp = 0.f, accq = 0.f;
+#pragma unroll 4
       for (int l = sub; l < lhi; l += kT) {
-        const float q = qmN[(size_t)l * L + i];
+        const float q = (kSmem & kQmS) ? s_qmT[qrow(l) + i]
+                                        : qmN[(size_t)l * L + i];
         if (l >= 1) accp += q * s_a[l - 1];
         accq += q * s_omn[l];
       }
@@ -292,63 +314,96 @@ __global__ void __launch_bounds__(1024) outside_kernel(
 
 namespace {
 
-// Shared memory of a block at mode kSmem (see outside_kernel).
+using namespace rt;
+
+// Shared memory of a block with placement kSmem (see outside_kernel).
 size_t outside_smem(int L, int smem) {
-  using namespace rt;
   return sizeof(float) * (kW * kW + kW + kPow2 + 1 + 128 + 9 * (size_t)(L + 1)
-                          + (smem >= 1 ? ring_floats(L) : 0)
-                          + (smem == 2 ? (size_t)L * L : 0));
+                          + ((smem & kRingS) ? ring_floats(L) : 0)
+                          + ((smem & kOmS) ? (size_t)L * L : 0)
+                          + ((smem & kQmS) ? (size_t)tri(L) : 0));
 }
+
+using OutsideFn = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const int*, const int*, const float*, const float*,
+                           const float*, float*, float*, float*, int, int);
+
+// The variant launched at L: its kernel, threads, shared memory, placement.
+struct Variant {
+  OutsideFn fn;
+  int threads;
+  size_t smem;
+  int mode;
+};
 
 template <bool kCofold, int kSmem, int kT>
-void launch_outside(const float* F, const float* qm, const float* qm1,
-                    const float* q1pad, const float* q2, const float* w2k,
-                    const float* bulge_k, const float* sig, const float* pows,
-                    const int* cut, const int* n, const float* qx,
-                    const float* qxA, const float* qBpref, float* om,
-                    float* ob, float* ring, int B, int L, cudaStream_t st) {
-  using namespace rt;
-  const int threads = kT * ((L + 31) / 32) * 32;
-  const size_t shmem = outside_smem(L, kSmem);
-  cudaFuncSetAttribute(outside_kernel<kCofold, kSmem, kT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  outside_kernel<kCofold, kSmem, kT><<<B, threads, shmem, st>>>(
-      F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, n, qx, qxA, qBpref,
-      om, ob, ring, B, L);
+Variant variant(int L) {
+  return {outside_kernel<kCofold, kSmem, kT>, kT * ((L + 31) / 32) * 32,
+          outside_smem(L, kSmem), kSmem};
 }
 
-// threads a row: four, else two, where a block of 1024 holds them and the
-// rings are in shared memory; else one
-template <bool kCofold, int kSmem>
-void launch_outside(const float* F, const float* qm, const float* qm1,
-                    const float* q1pad, const float* q2, const float* w2k,
-                    const float* bulge_k, const float* sig, const float* pows,
-                    const int* cut, const int* n, const float* qx,
-                    const float* qxA, const float* qBpref, float* om,
-                    float* ob, float* ring, int B, int L, cudaStream_t st) {
-#define RT_OUTSIDE(T)                                                        \
-  launch_outside<kCofold, kSmem, T>(F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, \
-                                    pows, cut, n, qx, qxA, qBpref, om, ob,   \
-                                    ring, B, L, st)
+// Placement: the rings in shared memory where they fit, then om, then qm
+// beside them where each still fits.  Threads a row: four where a block of
+// 1024 holds them and the rings are in shared memory, else two or one (om
+// and qm fit only where four do).  The fold's batch of B blocks takes, in
+// place of that, two threads a row with om in device memory (a smaller
+// block, more of them an SM) where that needs fewer waves: 512 blocks at
+// L = 96 take one wave so, two with om in shared memory (PERF.md, PR 5).
+template <bool kCofold>
+Variant pick(int L, int B) {
   const int rows = ((L + 31) / 32) * 32;
-  if constexpr (kSmem >= 1) {
-    if (4 * rows <= 1024) { RT_OUTSIDE(4); return; }
-    if (2 * rows <= 1024) { RT_OUTSIDE(2); return; }
+  if (outside_smem(L, kRingS) > (size_t)kSmemBlock)
+    return variant<kCofold, 0, 1>(L);
+  if (4 * rows > 1024)
+    return 2 * rows <= 1024 ? variant<kCofold, kRingS, 2>(L)
+                            : variant<kCofold, kRingS, 1>(L);
+  int mode = kRingS;
+  if (outside_smem(L, mode | kOmS) <= (size_t)kSmemBlock) mode |= kOmS;
+  if (outside_smem(L, mode | kQmS) <= (size_t)kSmemBlock) mode |= kQmS;
+  Variant v;
+  switch (mode) {
+    case kRingS | kOmS | kQmS:
+      v = variant<kCofold, kRingS | kOmS | kQmS, 4>(L);
+      break;
+    case kRingS | kOmS: v = variant<kCofold, kRingS | kOmS, 4>(L); break;
+    case kRingS | kQmS: v = variant<kCofold, kRingS | kQmS, 4>(L); break;
+    default: v = variant<kCofold, kRingS, 4>(L);
   }
-  RT_OUTSIDE(1);
-#undef RT_OUTSIDE
+  if constexpr (!kCofold) {
+    if (mode & kQmS) {
+      const Variant w = variant<kCofold, kRingS | kQmS, 2>(L);
+      if (waves(w, B) < waves(v, B)) return w;
+    }
+  }
+  return v;
+}
+
+Variant pick(int L, int cofold, int B) {
+  return cofold ? pick<true>(L, B) : pick<false>(L, B);
 }
 
 }  // namespace
 
-// Bytes of shared memory a block takes at mode smem (0: rings and om in
-// device memory, 1: rings in shared memory, 2: rings and om there).
-extern "C" long long rt_outside_smem(int L, int smem) {
-  return (long long)outside_smem(L, smem);
+// Placement bits (kRingS, kOmS, kQmS) of the outside scan of B instances
+// at L: without kRingS the caller passes a device-memory ring of
+// B * 68 * L floats, without kOmS an om scratch of B * L * L floats.
+extern "C" int rt_outside_mode(int L, int cofold, int B) {
+  return pick(L, cofold, B).mode;
 }
 
-// ring == nullptr: the rings live in shared memory; om == nullptr too: so
-// does om (the caller picks the mode with rt_outside_smem).
+// Blocks an SM of the variant launched for B instances at L (0 if the
+// runtime cannot say).
+extern "C" int rt_outside_occupancy(int L, int cofold, int B) {
+  return blocks_per_sm(pick(L, cofold, B));
+}
+
+// Threads a row of the variant launched for B instances at L.
+extern "C" int rt_outside_threads(int L, int cofold, int B) {
+  return pick(L, cofold, B).threads / (((L + 31) / 32) * 32);
+}
+
 extern "C" int rt_outside(const float* F, const float* qm, const float* qm1,
                           const float* q1pad, const float* q2, const float* w2k,
                           const float* bulge_k, const float* sig,
@@ -358,19 +413,11 @@ extern "C" int rt_outside(const float* F, const float* qm, const float* qm1,
                           float* ring, int B, int L, int cofold,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = ring != nullptr ? 0 : (om != nullptr ? 1 : 2);
-#define RT_OUTSIDE(CO, SM)                                                   \
-  launch_outside<CO, SM>(F, qm, qm1, q1pad, q2, w2k, bulge_k, sig, pows, cut, \
-                         n, qx, qxA, qBpref, om, ob, ring, B, L, st)
-  if (cofold) {
-    if (smem == 0) RT_OUTSIDE(true, 0);
-    else if (smem == 1) RT_OUTSIDE(true, 1);
-    else RT_OUTSIDE(true, 2);
-  } else {
-    if (smem == 0) RT_OUTSIDE(false, 0);
-    else if (smem == 1) RT_OUTSIDE(false, 1);
-    else RT_OUTSIDE(false, 2);
-  }
-#undef RT_OUTSIDE
+  const Variant v = pick(L, cofold, B);
+  cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)v.smem);
+  v.fn<<<B, v.threads, v.smem, st>>>(F, qm, qm1, q1pad, q2, w2k, bulge_k,
+                                     sig, pows, cut, n, qx, qxA, qBpref, om,
+                                     ob, ring, B, L);
   return (int)cudaGetLastError();
 }

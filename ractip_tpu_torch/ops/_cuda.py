@@ -35,6 +35,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block on the H100
 RING_ROWS = 68             # the scans' column rings: 2 x 32 window + 4 raw
+RING_S, OM_S = 1, 2        # placement bits of rt_*_mode: in shared memory
 
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
@@ -111,10 +112,14 @@ def lib() -> ctypes.CDLL:
             P, I = ctypes.c_void_p, ctypes.c_int
             dll.rt_inside.argtypes = [P] * 7 + [P] * 6 + [I, I, I, P]
             dll.rt_outside.argtypes = [P] * 17 + [I, I, I, P]
-            dll.rt_inside_smem.argtypes = [I]
-            dll.rt_outside_smem.argtypes = [I, I]
-            for f in (dll.rt_inside_smem, dll.rt_outside_smem):
-                f.restype = ctypes.c_longlong
+            dll.rt_inside_mode.argtypes = [I]
+            occ = (dll.rt_inside_occupancy, dll.rt_outside_mode,
+                   dll.rt_outside_occupancy, dll.rt_inside_threads,
+                   dll.rt_outside_threads)
+            for f in occ:
+                f.argtypes = [I, I, I]
+            for f in (dll.rt_inside_mode, *occ):
+                f.restype = I
             dll.rt_q2.argtypes = [P] * 4 + [I, I, P]
             dll.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 3 + [P]
             dll.rt_duplex_smem.argtypes = [I, I]
@@ -144,8 +149,8 @@ def _expect(t, shape, dtype=torch.float32) -> None:
 
 
 def _check_common(F, w2k, bulge_k, sig, pows, cut, n=None):
-    """Shapes shared by the scans; returns (B, L, n): the cofold's lengths
-    n default to the whole bucket."""
+    """Shapes shared by the scans; returns (B, L, n): the lengths n default
+    to the whole bucket."""
     NF, B, L, _ = F.shape
     if L > 1024:
         raise ValueError(f"one thread per row: L={L} exceeds 1024")
@@ -156,9 +161,9 @@ def _check_common(F, w2k, bulge_k, sig, pows, cut, n=None):
     _expect(pows, (B, POW2))
     if cut is not None:
         _expect(cut, (B,), torch.int32)
-        if n is None:
-            n = torch.full((B,), L, dtype=torch.int32, device=F.device)
-        _expect(n, (B,), torch.int32)
+    if n is None:
+        n = torch.full((B,), L, dtype=torch.int32, device=F.device)
+    _expect(n, (B,), torch.int32)
     return B, L, n
 
 
@@ -175,8 +180,8 @@ def _stream() -> int:
 
 def launch_inside(F, w2k, bulge_k, sig, pows, cut=None, n=None):
     """K1 (cut None) / K4: returns (qm1_c, qb_c, qm_c, qm2_c or qx_c, q1).
-    K4 takes the lengths n [B] int32 (None: the whole bucket) and sweeps
-    each instance's n columns; the padding it fills after the sweep."""
+    The lengths n [B] int32 (None: the whole bucket): the kernel sweeps each
+    instance's n columns and fills the padding after the sweep."""
     B, L, n = _check_common(F, w2k, bulge_k, sig, pows, cut, n)
     e = lambda *s: torch.empty(*s, dtype=torch.float32, device=F.device)
     qm1, qb, qm, aux, q1 = e(B, L, L), e(B, L, L), e(B, L, L), e(B, L, L), \
@@ -185,7 +190,7 @@ def launch_inside(F, w2k, bulge_k, sig, pows, cut=None, n=None):
     dll = lib()
     # the column rings in shared memory where they fit, else device memory
     ring = None
-    if dll.rt_inside_smem(L) > SMEM_PER_BLOCK:
+    if not dll.rt_inside_mode(L) & RING_S:
         ring = torch.empty(B, RING_ROWS, L, dtype=torch.float32,
                            device=F.device)
     _run(name, dll.rt_inside, _ptr(F), _ptr(w2k), _ptr(bulge_k), _ptr(sig),
@@ -197,8 +202,8 @@ def launch_inside(F, w2k, bulge_k, sig, pows, cut=None, n=None):
 
 def launch_outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig, pows,
                    cut=None, qxN=None, qxA=None, qBpref=None, n=None):
-    """K2 (cut None) / K5: returns ob_c.  K5 takes the lengths n [B] int32
-    (None: the whole bucket) and sweeps each instance's n columns."""
+    """K2 (cut None) / K5: returns ob_c.  The lengths n [B] int32 (None:
+    the whole bucket): the kernel sweeps each instance's n columns."""
     B, L, n = _check_common(F, w2k, bulge_k, sig, pows, cut, n)
     for t in (qmN, qm1_c) + ((qxN,) if cut is not None else ()):
         _expect(t, (B, L, L))
@@ -208,20 +213,33 @@ def launch_outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig, pows,
     ob = torch.empty(B, L, L, dtype=torch.float32, device=F.device)
     name = "outside" if cut is None else "co_outside"
     dll = lib()
-    # the rings and the om table in shared memory where they fit, else the
-    # om table, else both in device memory
+    # the rings and the om table where the kernel keeps them in device
+    # memory get a scratch here
+    mode = dll.rt_outside_mode(L, int(cut is not None), B)
     om = ring = None
-    if dll.rt_outside_smem(L, 2) > SMEM_PER_BLOCK:
+    if not mode & OM_S:
         om = torch.empty(B, L, L, dtype=torch.float32, device=F.device)
-        if dll.rt_outside_smem(L, 1) > SMEM_PER_BLOCK:
-            ring = torch.empty(B, RING_ROWS, L, dtype=torch.float32,
-                               device=F.device)
+    if not mode & RING_S:
+        ring = torch.empty(B, RING_ROWS, L, dtype=torch.float32,
+                           device=F.device)
     _run(name, dll.rt_outside, _ptr(F), _ptr(qmN), _ptr(qm1_c),
          _ptr(q1pad), _ptr(q2), _ptr(w2k), _ptr(bulge_k), _ptr(sig),
          _ptr(pows), _ptr(cut), _ptr(n), _ptr(qxN), _ptr(qxA), _ptr(qBpref),
          _ptr(om), _ptr(ob), _ptr(ring), B, L, int(cut is not None),
          _stream())
     return ob
+
+
+def occupancy(L: int, cofold: bool, B: int) -> dict:
+    """Blocks an SM of the inside and outside variants launched for B
+    instances at L (by cudaOccupancyMaxActiveBlocksPerMultiprocessor:
+    threads, shared memory and registers together; 0 where the runtime
+    cannot say), and their threads a row (inside_T, outside_T)."""
+    dll, c = lib(), int(cofold)
+    return dict(inside=dll.rt_inside_occupancy(L, c, B),
+                outside=dll.rt_outside_occupancy(L, c, B),
+                inside_T=dll.rt_inside_threads(L, c, B),
+                outside_T=dll.rt_outside_threads(L, c, B))
 
 
 def launch_q2(qbe, sig, n):

@@ -19,13 +19,10 @@ import torch
 from . import _cuda
 from .factors import co_factors
 from .scan import (SCALE_E0, _on_cpu, adaptive, as_tables, inside_plain,
-                   outside_plain, pair_probs, q2, saturated, stack_cols)
+                   lengths, outside_plain, pair_probs, q2, saturated,
+                   stack_cols)
 from ..params.boltz import TorchTables, sig_tables
 from ..utils.timing import stage
-
-
-def _lengths(n):
-    return None if n is None else n.to(torch.int32).contiguous()
 
 
 def co_inside(F, w2k, bulge_k, sig, pows, cut, n=None):
@@ -36,7 +33,7 @@ def co_inside(F, w2k, bulge_k, sig, pows, cut, n=None):
     if _on_cpu(F):
         return inside_plain(F, w2k, bulge_k, sig, pows, cut)
     return _cuda.launch_inside(F, w2k, bulge_k, sig, pows,
-                               cut.to(torch.int32).contiguous(), _lengths(n))
+                               cut.to(torch.int32).contiguous(), lengths(n))
 
 
 def co_outside(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v, w2k, bulge_k,
@@ -47,7 +44,7 @@ def co_outside(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v, w2k, bulge_k,
                                 w2k, bulge_k, sig, pows, cut)
     return _cuda.launch_outside(F, qmN, qm1_c, q1pad, q2v, w2k, bulge_k, sig,
                                 pows, cut.to(torch.int32).contiguous(), qxN,
-                                qxA, qBpref, _lengths(n))
+                                qxA, qBpref, lengths(n))
 
 
 def co_outside_plain(F, qmN, qm1_c, qxN, qxA, qBpref, q1pad, q2v, w2k,

@@ -341,20 +341,28 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def inside(F, w2k, bulge_k, sig, pows):
-    """K1: fold inside scan -> (qm1_c, qb_c, qm_c, qm2_c, q1)."""
+def lengths(n):
+    """The kernels' lengths argument: n [B] as contiguous int32 (or None)."""
+    return None if n is None else n.to(torch.int32).contiguous()
+
+
+def inside(F, w2k, bulge_k, sig, pows, n=None):
+    """K1: fold inside scan -> (qm1_c, qb_c, qm_c, qm2_c, q1).  n [B]: the
+    sequences' lengths (None: the whole bucket); the kernel sweeps only
+    those, the plain version everything (the tables agree either way,
+    padding included)."""
     if _on_cpu(F):
         return inside_plain(F, w2k, bulge_k, sig, pows)
-    return _cuda.launch_inside(F, w2k, bulge_k, sig, pows)
+    return _cuda.launch_inside(F, w2k, bulge_k, sig, pows, n=lengths(n))
 
 
-def outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig, pows):
-    """K2: fold outside scan -> ob_c."""
+def outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig, pows, n=None):
+    """K2: fold outside scan -> ob_c (n as for inside)."""
     if _on_cpu(F):
         return outside_plain(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig,
                              pows)
     return _cuda.launch_outside(F, qmN, qm1_c, q1pad, q2, w2k, bulge_k, sig,
-                                pows)
+                                pows, n=lengths(n))
 
 
 def q2(qbe, sig, n):
@@ -411,7 +419,7 @@ def batch_inside(tt: TorchTables, S, n, es, timer=None):
         ff = fold_factors(tt, S, n, sig)
         F = stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
-    qm1_c, qb_c, qm_c, qm2_c, q1 = inside(F, w2k, bulge_k, sig, pows)
+    qm1_c, qb_c, qm_c, qm2_c, q1 = inside(F, w2k, bulge_k, sig, pows, n)
     qb, qm, qm1 = qb_c.transpose(1, 2), qm_c.transpose(1, 2), \
         qm1_c.transpose(1, 2)
     # last qm2 column (segment ending at L-1), as ops.mccaskill.inside does
@@ -473,7 +481,7 @@ def batch_fold(tables, S, n, device, max_iter: int = 8,
     q1pad = torch.cat([torch.ones(B, 1, dtype=tt.dtype, device=dev),
                        ins["q1"][:, :-1]], 1).contiguous()
     ob_c = outside(aux["F"], ins["qm"].contiguous(), aux["qm1_c"], q1pad,
-                   ins["q2"], aux["w2k"], aux["bulge_k"], sig, aux["pows"])
+                   ins["q2"], aux["w2k"], aux["bulge_k"], sig, aux["pows"], n)
     ob = ob_c.transpose(1, 2)
     return dict(ins=ins, ff=aux["ff"], ob=ob, bpp=pair_probs(ins["qb"], ob,
                                                             ins["zn"]),

@@ -5,7 +5,8 @@ the fixture, so every worker collects the same tests).  Run on the GPU
 with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 (--noconftest skips tests/conftest.py, which imports jax; this file does not.)
 Tolerances: inside states and ob rtol 1e-4 (f32 summation order; 1e-3 at
-Lc = 1024, the gate of the Lc = 288 corpus shape), pair probabilities atol
+L > 192 and Lc = 1024, the gate of the Lc = 288 corpus shape; every
+comparison also allows 1e-30 absolute), pair probabilities atol
 1e-5; the duplex sweeps (K6) in the log domain to atol 5e-4 with identical
 support, as the JAX package gates its Pallas sweep."""
 
@@ -48,6 +49,12 @@ def _close(a, b, rtol):
 
 
 def test_fold_kernels_match_plain(dev):
+    """K1, K3, K2 over whole buckets, then K1 and K2 given the lengths: n < L
+    (L = 64), a small sigma (es + 500: the padding's qm leaves the normal
+    floats, L = 96), L = 192 and L = 256 at B = 512 and B = 8 (qm in device
+    memory; K1 at two and four threads a row) and L = 1024 (rings and qm in
+    device memory).  Whole tables, padding included: the same non-finite
+    cells, values within the tolerance, a relaunch bit-identical."""
     tt = ts.as_tables(get_default_params(), dev)
     S, n = _seqs(0, 16, 64, 40)
     S, n = torch.as_tensor(S, device=dev), torch.as_tensor(n, device=dev)
@@ -68,6 +75,51 @@ def test_fold_kernels_match_plain(dev):
     oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2k, w2k,
              bulge_k, sig, pows)
     _close(ts.outside(*oargs), ts.outside_plain(*oargs), 1e-4)
+    rng = np.random.default_rng(9)
+    _fold_length_aware(dev, tt, rng, 64, n.tolist(), 0.0, 1e-4)
+    _fold_length_aware(dev, tt, rng, 96, [70, 70, 48, 90], 500.0, 1e-4)
+    _fold_length_aware(dev, tt, rng, 1024, [1000], 0.0, 1e-3)
+    rng = np.random.default_rng(19)
+    for L, rtol in ((192, 1e-4), (256, 1e-3)):
+        for B in (512, 8):
+            _fold_length_aware(dev, tt, rng, L,
+                               rng.integers(L - 40, L + 1, B).tolist(), 0.0,
+                               rtol)
+
+
+def _same(k, k2, p, rtol):
+    """Whole tables: a relaunch bit-identical, the same non-finite cells,
+    values within rtol."""
+    for a, a2, b in zip(k, k2, p):
+        assert torch.equal(a, a2)
+        assert torch.equal(a.isfinite(), b.isfinite())
+        fin = b.isfinite()
+        _close(a[fin], b[fin], rtol)
+
+
+def _fold_length_aware(dev, tt, rng, L, ns, des, rtol):
+    S = torch.as_tensor(np.stack([encode("".join(rng.choice(list("ACGU"), m)),
+                                         L) for m in ns]), device=dev).long()
+    n = torch.tensor(ns, device=dev)
+    sig = torch.exp(-torch.full((len(ns),), ts.SCALE_E0 + des, device=dev)
+                    / tt.scalar(tt.bt.kt))
+    ff = fold_factors(tt, S, n, sig)
+    F = ts.stack_cols(ff)
+    w2k, bulge_k, pows = sig_tables(tt, sig)
+    args = (F, w2k, bulge_k, sig, pows)
+    kout = ts.inside(*args, n=n)
+    _same(kout, ts.inside(*args, n=n), ts.inside_plain(*args), rtol)
+    qm1_c, qb_c, qm_c, _, q1 = kout
+    if des:
+        pad = torch.arange(L, device=dev)[None, :, None] >= n[:, None, None]
+        assert bool(((qm_c > 0) & (qm_c < torch.finfo(torch.float32).tiny)
+                     & pad).any())
+    q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+    q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
+    oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2v, w2k,
+             bulge_k, sig, pows)
+    _same((ts.outside(*oargs, n=n),), (ts.outside(*oargs, n=n),),
+          (ts.outside_plain(*oargs),), rtol)
 
 
 def test_cofold_kernels_match_plain(dev):
@@ -124,15 +176,8 @@ def _length_aware_case(dev, L1, N1, N2, rtol):
     w2k, bulge_k, pows = sig_tables(tt, sig)
     args = (F, w2k, bulge_k, sig, pows, cut)
 
-    def same(k, k2, p):
-        for a, a2, b in zip(k, k2, p):
-            assert torch.equal(a, a2)
-            assert torch.equal(a.isfinite(), b.isfinite())
-            fin = b.isfinite()
-            _close(a[fin], b[fin], rtol)
-
     kout = tc.co_inside(*args, n=n)
-    same(kout, tc.co_inside(*args, n=n), ts.inside_plain(*args))
+    _same(kout, tc.co_inside(*args, n=n), ts.inside_plain(*args), rtol)
     qm1_c, qb_c, qm_c, qx_c, q1 = kout
     q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
     q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
@@ -140,8 +185,8 @@ def _length_aware_case(dev, L1, N1, N2, rtol):
     qxA, qBpref = tc.exterior_vectors(qx, cut)
     oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, qx, qxA, qBpref,
              q1pad, q2v, w2k, bulge_k, sig, pows, cut)
-    same((tc.co_outside(*oargs, n=n),), (tc.co_outside(*oargs, n=n),),
-         (tc.co_outside_plain(*oargs),))
+    _same((tc.co_outside(*oargs, n=n),), (tc.co_outside(*oargs, n=n),),
+          (tc.co_outside_plain(*oargs),), rtol)
 
 
 def test_batch_fold_cuda_matches_cpu(dev):

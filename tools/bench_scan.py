@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
-"""Time the cofold kernels K4 (co_inside) and K5 (co_outside) of one or
-more copies of the port on one GPU, each against its plain version.
+"""Time the scan kernels K1 (inside), K2 (outside), K4 (co_inside) and K5
+(co_outside) of one or more copies of the port on one GPU, each against its
+plain version.
 
-    python3 tools/bench_cofold.py [--trees DIR,DIR,...] [--shapes main,corpus]
-                                  [--reps 5] [--rounds 2]
+    python3 tools/bench_scan.py [--trees DIR,DIR,...] [--shapes fold,main]
+                                [--reps 5] [--rounds 2]
 
 Each DIR is a directory holding a ractip_tpu_torch package (default: the
 repository root).  Every tree runs in a process of its own, which builds
 that tree's kernels with nvcc and times them with CUDA events on inputs made
 from fixed seeds; with --rounds 2 the trees run in the order A B ... B A, so
-two versions are compared inside one call on one card.  Shapes: main (B=256,
-s1 = 70 nt of shuffled CopA, s2 = shuffled CopT, buckets 96 + 96), corpus
-(the bundled 8 pairs, Lc = 288), edges (B=4, Lc = 192, the cut at 1 and
-at n - 1), long (B=2, Lc = 512, random pairs of
-200 + 270 and 224 + 288 nt), xlong (B=2, Lc = 1024, 480 + 500 and
-512 + 512 nt).  One JSON line per tree and shape; the summary goes to
-chiprun_out/bench_cofold.json.
+two versions are compared inside one call on one card.
+
+Fold shapes (K1, K2; the scale energies the adaptive loop picks):
+  fold         B=512, L=96: 256 shuffled CopA and 256 shuffled CopT (70 nt),
+               the main path's fold;
+  fold64       B=16, L=64: random sequences of 40-64 nt (a short run, as
+               for compute-sanitizer);
+  fold128      B=8, L=128: the bundled corpus's first strands;
+  fold160      B=8, L=160: its second strands;
+  foldxlong    B=2, L=1024: random sequences of 1000 and 1024 nt (rings and
+               tables in device memory).
+Cofold shapes (K4, K5): main (B=256, s1 = 70 nt of shuffled CopA, s2 =
+shuffled CopT, buckets 96 + 96), edges (B=4, Lc = 192, the cut at 1 and at
+n - 1), corpus (the bundled 8 pairs, Lc = 288), long (B=2, Lc = 512, random
+pairs of 200 + 270 and 224 + 288 nt), xlong (B=2, Lc = 1024, 480 + 500 and
+512 + 512 nt).
+
+A tree whose wrappers take no lengths n runs without them.  One JSON line
+per tree and shape (times, max relative difference of whole tables against
+the plain version, a relaunch bit-identical or not, and the kernels' blocks
+an SM where the tree reports them); the summary goes to
+chiprun_out/bench_scan.json.
 """
 
 from __future__ import annotations
@@ -29,6 +45,29 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+FOLD_SHAPES = ("fold", "fold64", "fold128", "fold160", "foldxlong")
+
+
+def _rand(rng, k):
+    return "".join(rng.choice(list("ACGU"), k))
+
+
+def _fold_seqs(shape: str):
+    """(sequences, bucket L) of a fold shape."""
+    import numpy as np
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs, record
+    from ractip_tpu_torch.pipeline.shuffle import shuffle_batch
+    if shape == "fold":
+        a, b = record("CopA.fa").seq, record("CopT.fa").seq
+        return shuffle_batch(a, 256, 11) + shuffle_batch(b, 256, 12), 96
+    if shape in ("fold128", "fold160"):
+        k = 0 if shape == "fold128" else 1
+        return [(f1.seq, f2.seq)[k] for _, f1, f2 in corpus_pairs()], \
+            int(shape[4:])
+    rng = np.random.default_rng(17)
+    if shape == "fold64":
+        return [_rand(rng, int(k)) for k in rng.integers(40, 65, 16)], 64
+    return [_rand(rng, 1000), _rand(rng, 1024)], 1024
 
 
 def _pairs(shape: str):
@@ -49,12 +88,27 @@ def _pairs(shape: str):
         return (pairs, max(bucket_length(len(x)) for x, _ in pairs),
                 max(bucket_length(len(y)) for _, y in pairs))
     rng = np.random.default_rng(13)
-    rs = lambda k: "".join(rng.choice(list("ACGU"), k))
+    rs = lambda k: _rand(rng, k)
     if shape == "long":
         return [(rs(200), rs(270)), (rs(224), rs(288))], 224, 288
     if shape == "xlong":
         return [(rs(480), rs(500)), (rs(512), rs(512))], 512, 512
     raise ValueError(shape)
+
+
+def rel(a, b) -> float:
+    """Max relative difference of a against b; infinite where the finite
+    cells differ or a is nonzero where b is 0."""
+    import torch
+    a, b = a.double(), b.double()
+    if not torch.equal(a.isfinite(), b.isfinite()):
+        return float("inf")
+    fin = b.isfinite()
+    d, bb = (a - b).abs()[fin], b.abs()[fin]
+    nz = bb > 0
+    if bool((d[~nz] > 1e-30).any()):
+        return float("inf")
+    return float((d[nz] / bb[nz]).max()) if bool(nz.any()) else 0.0
 
 
 def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
@@ -66,7 +120,7 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
     from ractip_tpu_torch.ops import _cuda
     from ractip_tpu_torch.ops import cofold as tc
     from ractip_tpu_torch.ops import scan as ts
-    from ractip_tpu_torch.ops.factors import co_factors
+    from ractip_tpu_torch.ops.factors import co_factors, fold_factors
     from ractip_tpu_torch.ops.seq import encode
     from ractip_tpu_torch.params.boltz import sig_tables
     from ractip_tpu_torch.params.tables import get_default_params
@@ -74,8 +128,8 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
     if dev.type == "cuda":
         _cuda.build(force=True)
     tt = ts.as_tables(get_default_params(), dev)
-    takes_n = "n" in inspect.signature(tc.co_inside).parameters
     out = []
+    t = lambda v: torch.as_tensor(np.asarray(v), device=dev)
 
     def ms(fn):
         fn()
@@ -92,31 +146,60 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / reps
 
-    def rel(a, b):
-        a, b = a.double(), b.double()
-        if not torch.equal(a.isfinite(), b.isfinite()):
-            return float("inf")
-        d = (a - b).abs()[b.isfinite()]
-        nz = b.abs()[b.isfinite()] > 0
-        bad = bool((d[~nz] > 1e-30).any())
-        return float("inf") if bad else float((d[nz] / b.abs()[b.isfinite()][
-            nz]).max()) if bool(nz.any()) else 0.0
+    def occupancy(L, cofold, B):
+        """Blocks an SM of the inside and outside variants the launchers
+        pick for B instances at L, where the tree reports them."""
+        if dev.type != "cuda" or not hasattr(_cuda, "occupancy"):
+            return None
+        return _cuda.occupancy(L, cofold, B)
 
-    for shape in shapes:
+    def fold(shape):
+        seqs, L = _fold_seqs(shape)
+        S = t(np.stack([encode(s, L) for s in seqs])).long()
+        n = t([len(s) for s in seqs])
+        takes_n = "n" in inspect.signature(ts.inside).parameters
+        kw = dict(n=n) if takes_n else {}
+        es = ts.batch_fold(tt, S, n, dev)["es"]
+        sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+        ff = fold_factors(tt, S, n, sig)
+        F = ts.stack_cols(ff)
+        w2k, bulge_k, pows = sig_tables(tt, sig)
+        args = (F, w2k, bulge_k, sig, pows)
+        kin = lambda: ts.inside(*args, **kw)
+        ins_k, ins_p = kin(), ts.inside_plain(*args)
+        qm1_c, qb_c, qm_c, _, q1 = ins_p
+        qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+        q2v = ts.q2(qbe, sig, n)
+        q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]],
+                          1).contiguous()
+        oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2v,
+                 w2k, bulge_k, sig, pows)
+        kout = lambda: ts.outside(*oargs, **kw)
+        ob_k, ob_p = kout(), ts.outside_plain(*oargs)
+        same = (all(torch.equal(a, b) for a, b in zip(ins_k, kin()))
+                and torch.equal(ob_k, kout()))
+        return dict(B=len(seqs), L=L, n_mean=float(n.float().mean()),
+                    es_sum=float(es.sum()), takes_n=takes_n,
+                    ins_rel=max(rel(a, b) for a, b in zip(ins_k, ins_p)),
+                    ob_rel=rel(ob_k, ob_p), relaunch_same=same,
+                    inside_ms=ms(kin), outside_ms=ms(kout),
+                    blocks_per_sm=occupancy(L, False, len(seqs)))
+
+    def cofold(shape):
         pairs, L1, L2 = _pairs(shape)
-        t = lambda v: torch.as_tensor(np.asarray(v), device=dev)
         S1 = t(np.stack([encode(a, L1) for a, _ in pairs])).long()
         S2 = t(np.stack([encode(b, L2) for _, b in pairs])).long()
         n1, n2 = t([len(a) for a, _ in pairs]), t([len(b) for _, b in pairs])
         S = tc._pack_concat(S1, S2, n1)
         n, cut = n1 + n2, n1
+        takes_n = "n" in inspect.signature(tc.co_inside).parameters
+        kw = dict(n=n) if takes_n else {}
         es = tc.batch_cofold(tt, S1, S2, n1, n2, dev)["es"]
         sig = torch.exp(-es / tt.scalar(tt.bt.kt))
         ff = co_factors(tt, S, n, cut, sig)
         F = ts.stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
         args = (F, w2k, bulge_k, sig, pows, cut)
-        kw = dict(n=n) if takes_n else {}
         kin = lambda: tc.co_inside(*args, **kw)
         ins_k, ins_p = kin(), ts.inside_plain(*args)
         qm1_c, qb_c, qm_c, qx_c, q1 = ins_p
@@ -132,23 +215,27 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
         ob_k, ob_p = kout(), tc.co_outside_plain(*oargs)
         same = (all(torch.equal(a, b) for a, b in zip(ins_k, kin()))
                 and torch.equal(ob_k, kout()))
-        rec = dict(tree=str(tree), shape=shape, B=len(pairs), Lc=L1 + L2,
-                   n_mean=float(n.float().mean()), es_sum=float(es.sum()),
-                   takes_n=takes_n, ins_rel=max(rel(a, b) for a, b in
-                                                zip(ins_k, ins_p)),
-                   ob_rel=rel(ob_k, ob_p), relaunch_same=same,
-                   co_inside_ms=ms(kin), co_outside_ms=ms(kout))
+        return dict(B=len(pairs), Lc=L1 + L2, n_mean=float(n.float().mean()),
+                    es_sum=float(es.sum()), takes_n=takes_n,
+                    ins_rel=max(rel(a, b) for a, b in zip(ins_k, ins_p)),
+                    ob_rel=rel(ob_k, ob_p), relaunch_same=same,
+                    co_inside_ms=ms(kin), co_outside_ms=ms(kout),
+                    blocks_per_sm=occupancy(L1 + L2, True, len(pairs)))
+
+    for shape in shapes:
+        fn = fold if shape in FOLD_SHAPES else cofold
+        rec = dict(tree=str(tree), shape=shape, **fn(shape))
         print(json.dumps(rec), flush=True)
         out.append(rec)
-        del ins_k, ins_p, ob_k, ob_p, F
-        torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", default=str(ROOT))
-    ap.add_argument("--shapes", default="main")
+    ap.add_argument("--shapes", default="fold,main")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--timeout", type=float, default=600,
@@ -190,7 +277,7 @@ def main() -> int:
         print(f"# {tree}: {time.perf_counter() - t0:.1f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "bench_cofold.json").write_text(json.dumps(
+    (out / "bench_scan.json").write_text(json.dumps(
         dict(nvidia_smi=smi, records=recs), indent=1))
     return rc
 

@@ -21,6 +21,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __shared__
 #define __launch_bounds__(x)
 #define __restrict__
@@ -31,6 +32,11 @@ typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+constexpr int cudaSuccess = 0;
+template <class T> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t) { *n = 1; return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
 using std::min; using std::max;
 inline float __logf(float x) { return logf(x); }
 inline float __expf(float x) { return expf(x); }

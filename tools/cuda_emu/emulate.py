@@ -2,7 +2,7 @@
 """Run the scan kernels' CUDA sources (K1/K4 inside.cu, K2/K5 outside.cu) on
 the CPU and hold them against their plain PyTorch versions.
 
-    python3 tools/cuda_emu/emulate.py fold L            # K1, K2 at bucket L
+    python3 tools/cuda_emu/emulate.py fold L [dES]      # K1, K2 at bucket L
     python3 tools/cuda_emu/emulate.py cofold L1 [B] [dES]  # K4, K5, Lc = 2 L1
 
 For a machine without nvcc or a GPU: g++ compiles the sources against
@@ -13,9 +13,13 @@ call the result through ctypes on CPU tensors.  A shuffle whose lanes do
 not all arrive hangs, a lane outside its mask aborts, and an out-of-bounds
 access stops the run with ASan's report.  It shows logic and indexing
 faults; it says nothing of speed, of the compiler's code for the card, or
-of faults only the card's memory model shows.  The cofold batch holds the
-cut at both edges; dES raises every scale energy (small sigma: the
-subnormal padding path).  The build goes to tools/cuda_emu/build/.
+of faults only the card's memory model shows.  The fold batch holds
+lengths n < L (and one n = L), given to the kernels; the cofold batch holds
+the cut at both edges.  dES raises every scale energy (small sigma: the
+subnormal padding path); the fold runs its batch at the default scale and
+then at dES (default 500: at L = 96 the padding's qm leaves the normal
+floats while the swept cells stay normal).  The build goes to
+tools/cuda_emu/build/.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def build() -> Path:
         src = (csrc / f"{name}.cu").read_text()
         src = src.replace("extern __shared__ float sh[];",
                           "float* sh = emu::g_sh;")
-        src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
+        src = re.sub(r"([\w.]+(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
                      lambda m: "emu::launch(%s, [&]() { %s(%s); });" % (
                          m.group(2), m.group(1), m.group(3)), src, flags=re.S)
         out = BUILD / f"{name}.cpp"
@@ -79,12 +83,12 @@ def main() -> int:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rt_inside.argtypes = [P] * 13 + [I, I, I, P]
     lib.rt_outside.argtypes = [P] * 17 + [I, I, I, P]
-    lib.rt_inside_smem.argtypes = [I]
-    lib.rt_outside_smem.argtypes = [I, I]
     for f in (lib.rt_inside, lib.rt_outside):
         f.restype = I
-    for f in (lib.rt_inside_smem, lib.rt_outside_smem):
-        f.restype = ctypes.c_longlong
+    lib.rt_inside_mode.argtypes = [I]
+    lib.rt_outside_mode.argtypes = [I, I, I]
+    for f in (lib.rt_inside_mode, lib.rt_outside_mode):
+        f.restype = I
     # the launchers, on CPU tensors
     _cuda._lib, _cuda._stream = lib, lambda: None
     _cuda._expect = lambda *a, **k: None
@@ -115,24 +119,31 @@ def main() -> int:
         L = int(a[1])
         ns = [L, L - 7, L // 2]
         S, n = enc(ns, L), torch.tensor(ns)
-        sig = torch.exp(-torch.full((3,), ts.SCALE_E0) / tt.scalar(tt.bt.kt))
-        ff = fold_factors(tt, S, n, sig)
-        F = ts.stack_cols(ff)
-        w2k, bulge_k, pows = sig_tables(tt, sig)
-        args = (F, w2k, bulge_k, sig, pows)
-        k, s = timed(lambda: _cuda.launch_inside(*args))
-        p = ts.inside_plain(*args)
-        print(f"K1 max rel {max(rel(x, y) for x, y in zip(k, p)):.3e} "
-              f"({s:.1f} s)", flush=True)
-        qm1_c, qb_c, qm_c, _, q1 = p
-        qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
-        q2v = ts.q2_plain(qbe, sig, n.to(torch.int32))
-        q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1)
-        oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c,
-                 q1pad.contiguous(), q2v, w2k, bulge_k, sig, pows)
-        o, s = timed(lambda: _cuda.launch_outside(*oargs))
-        print(f"K2 max rel {rel(o, ts.outside_plain(*oargs)):.3e} "
-              f"({s:.1f} s)", flush=True)
+        n32 = n.to(torch.int32)
+        for des in (0.0, float(a[2]) if len(a) > 2 else 500.0):
+            es = torch.full((3,), ts.SCALE_E0 + des)
+            sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+            ff = fold_factors(tt, S, n, sig)
+            F = ts.stack_cols(ff)
+            w2k, bulge_k, pows = sig_tables(tt, sig)
+            args = (F, w2k, bulge_k, sig, pows)
+            k, s = timed(lambda: _cuda.launch_inside(*args, n=n32))
+            p = ts.inside_plain(*args)
+            qm_c = p[2]
+            sub = int(((qm_c > 0) & (qm_c < 1.1754944e-38)).sum())
+            print(f"dES {des:g}: K1 max rel "
+                  f"{max(rel(x, y) for x, y in zip(k, p)):.3e} ({s:.1f} s; "
+                  f"{sub} subnormal qm cells)", flush=True)
+            qm1_c, qb_c, qm_c, _, q1 = p
+            qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+            q2v = ts.q2_plain(qbe, sig, n32)
+            q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1)
+            oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c,
+                     q1pad.contiguous(), q2v, w2k, bulge_k, sig, pows)
+            o, s = timed(lambda: _cuda.launch_outside(*oargs, n=n32))
+            print(f"dES {des:g}: K2 max rel "
+                  f"{rel(o, ts.outside_plain(*oargs)):.3e} ({s:.1f} s)",
+                  flush=True)
         return 0
     L1 = int(a[1])
     B = int(a[2]) if len(a) > 2 else 5
