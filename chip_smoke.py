@@ -20,24 +20,32 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               floats; K2 held beyond 1e-30 absolute), for K4/K5 with the cut
               at both edges (cut=1, cut=n-1; Lc=192), at long shapes (fold
               B=2, L=1024; cofold B=2, Lc=512 and Lc=1024: past the sizes
-              where their tables and rings fit in shared memory), and for K6
-              at a long target (B=2, L1=64, L2=2048), with CUDA-event times
-              of both and each kernel's bound on the card; K1, K2, K4, K5
-              and K6 take the lengths; whole tables are compared, padding
+              where their tables and rings fit in shared memory), for K3 at
+              every fold and cofold case and on full random qbe with n < L
+              (lower triangle and padding nonzero), and for K6 at a long
+              target (B=2, L1=64, L2=2048: rings in device memory) and with
+              each of its variants (1, 2, 4, 8 lanes a column group and 2 or
+              4 columns a group with the rings in shared memory; 1 or 2
+              lanes of 2 columns with them in device memory) at the corpus
+              shape, with
+              CUDA-event times of both and each kernel's bound on the card;
+              K1-K6 take the lengths; whole tables are compared, padding
               included; NaN or infinities in one version and not the other
               fail, as do non-finite pair probabilities and a second launch
               that is not bit-identical;
   4. corpus   predict_batch on the bundled 8-pair corpus against the golden
               file made by the JAX package (tests/data/torch_port_golden.json);
   5. zscore   CopA x CopT against 1000 seeded decoys at chunk 256 (per-stage
-              times, decoy pipelines/s, z/zs sanity band); then, outside
-              the main path's count, the golden's 64-decoy seeded run for
-              parity;
+              times, decoy pipelines/s, z/zs sanity band; the first 256
+              decoys' energies, z and zs against the golden's seeded
+              256-decoy run); then, outside the main path's count, the
+              golden's 64-decoy seeded run for parity;
   6. duplex   the pure-duplex model (--duplex, K6 in place of the cofold):
               the corpus against tests/data/torch_port_golden_duplex.json,
               then CopA x CopT against 1000 seeded decoys at chunk 256
-              (stage times, decoy pipelines/s); then, outside the main
-              path's count, the golden's 64-decoy seeded z-score for parity;
+              (stage times, decoy pipelines/s; the first 256 decoys against
+              the golden's 256-decoy run); then, outside the main path's
+              count, the golden's 64-decoy seeded z-score for parity;
   7. counts   each path's kernels launched, the other model's kernels not,
               and no plain version on a CUDA tensor.  The counts are set to
               0 just before each main path (phases 4-5, phase 6 without
@@ -57,10 +65,10 @@ bound is a lower one.  The bytes are those of each kernel's inputs and
 outputs.  K1, K2, K4 and K5 take the lengths n and read the factors (and
 K2, K5 their resident tables qm, qm1, and K5 qx) only inside each
 instance's n x n region, K6 takes n1, n2 and reads the factors only inside
-the n1 x n2 chain region: their bytes count those regions and the outputs
-whole (K1, K2, K4 and K5 also record the whole-bucket bound beside it),
-while K3 reads whole buckets.  No single PyTorch call computes any of these
-DPs, so library_ms is null.
+the n1 x n2 chain region, and K3 needs the rows i < n of qbe (past n q2
+is 1 whatever qbe holds): their bytes count those regions and the outputs
+whole (K1-K5 also record the whole-bucket bound beside it).  No single
+PyTorch call computes any of these DPs, so library_ms is null.
 """
 
 from __future__ import annotations
@@ -93,6 +101,9 @@ TOL_DUPLEX_PR = 2e-5      # pr, absolute
 TOL_DUPLEX_LOGZ = (1e-5, 1e-4)   # log_zd, rtol and atol
 DUPLEX_B, DUPLEX_L = 256, 96
 Z_TPU, ZS_TPU, Z_BAND = -6.374, -2.845, 0.5
+# the first chunk of the 1000-decoy run against the JAX golden's seeded
+# 256-decoy run (one chunk): energies, and z / zs over those 256 decoys
+GOLD_DECOYS, TOL_DECOY_E, TOL_Z = 256, 1e-6, 1e-2
 KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
     ("inside", "ractip_tpu_torch/csrc/inside.cu",
      "ractip_tpu/ops/scan_pallas.py:349", "default"),
@@ -137,12 +148,15 @@ class Run:
 
     def phase(self, name, fn, *a):
         say(f"== {name}")
+        t0 = time.perf_counter()
         try:
             return fn(self, *a)
         except Exception as e:  # a phase that raises fails the run
             traceback.print_exc()
             self.failures.append(f"{name}: {type(e).__name__}: {e}")
             return None
+        finally:
+            say(f"   ({name}: {time.perf_counter() - t0:.1f} s)")
 
 
 def diff(a, b, floor=0.0):
@@ -225,18 +239,29 @@ def nbytes(*tensors) -> int:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() by CUDA events, after one warm-up call."""
-    import torch
+    """Mean milliseconds of fn() by CUDA events, after one warm-up call;
+    each call's outputs are dropped before the next, so the allocator
+    reuses their memory as the pipeline's calls do."""
+    def calls():
+        for _ in range(reps):
+            fn()
     fn()
+    return timed_once(calls)[1] / reps
+
+
+def timed_once(fn):
+    """(fn()'s result, its milliseconds by CUDA events): the plain versions,
+    slow enough that one cold call is their time, are timed on the call
+    that the comparison uses."""
+    import torch
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return out, t0.elapsed_time(t1)
 
 
 # --------------------------------------------------------------------------
@@ -281,9 +306,14 @@ def phase_build(run: Run):
              "duplex_sweep_kernel": "duplex_sweep"}
     for mangled, v in sorted(regs.items()):
         short = next((s for k, s in names.items() if k in mangled), mangled)
-        # the scans' variants: <placement bits, threads a row>
+        # the scans' variants: <placement bits, threads a row>; K6's:
+        # <lanes a column group, columns a group, rings in shared memory>
         m = re.search(r"_kernelILb[01]ELi(\d+)ELi(\d+)E", mangled)
-        var = f"<smem {m.group(1)}, T {m.group(2)}>" if m else ""
+        d = re.search(r"duplex_sweep_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      mangled)
+        var = (f"<smem {m.group(1)}, T {m.group(2)}>" if m else
+               f"<G {d.group(1)}, J {d.group(2)}, ring smem {d.group(3)}>"
+               if d else "")
         say(f"  ptxas {short}{var}: {v.get('regs')} registers, "
             f"{v.get('spill', 0)} bytes spilled")
     run.record["build"] = dict(seconds=secs, ptxas=regs)
@@ -361,7 +391,8 @@ def phase_kernels(run: Run):
         kept beside it).  floor: the absolute slack of the comparison
         (diff); note: more to record and print.  Returns kfn()'s outputs."""
         tup = lambda o: o if isinstance(o, tuple) else (o,)
-        outs_k, outs_p, again = tup(kfn()), tup(pfn()), tup(kfn())
+        outs_p, plain_ms = timed_once(pfn)
+        outs_k, outs_p, again = tup(kfn()), tup(outs_p), tup(kfn())
         same = all(torch.equal(a, b) for a, b in zip(outs_k, again))
         worst_rel, worst_abs, nonfin = 0.0, 0.0, [0, 0]
         for a, b in zip(outs_k, outs_p):
@@ -372,7 +403,7 @@ def phase_kernels(run: Run):
         for a, b in zip(probs(outs_k), probs(outs_p)):
             ab, _, nk, np_ = diff(a, b)
             pab, pnonfin = max(pab, ab), pnonfin + nk + np_
-        ms, plain_ms = cuda_ms(kfn, 5), cuda_ms(pfn, 1)
+        ms = cuda_ms(kfn, 5)
         whole = nbytes(*inputs, *outs_k)
         nb = whole if region_bytes is None else region_bytes(outs_k)
         bms, by = bound(ops, nb)
@@ -402,8 +433,18 @@ def phase_kernels(run: Run):
     # ---- fold: K1, K3, K2 at the main path's shape; K1, K2 at the corpus
     # shapes, at L = 192 and 256 (rings in shared memory, qm in device
     # memory; two and four threads a row), at L = 1024 and at a small sigma
-    def fold_case(seqs, L, tol_rel, tol_abs, des=0.0, label=None,
-                  k3=False):
+    def q2_case(shape, qbe, sig, n32, tol_rel, tol_abs):
+        """K3 against its plain version; its bytes count the rows i < n of
+        qbe (q2 is 1 past n whatever qbe holds), the whole bucket beside."""
+        ns, L = n32.tolist(), qbe.shape[-1]
+        return rec("q2", shape, lambda: ts.q2(qbe, sig, n32),
+                   lambda: ts.q2_plain(qbe, sig, n32), tol_rel, tol_abs,
+                   ops=float(sum(2 * m * L for m in ns)),
+                   inputs=(qbe, sig, n32),
+                   region_bytes=lambda o: 4 * L * sum(ns) + nbytes(
+                       sig, n32, *o))[0]
+
+    def fold_case(seqs, L, tol_rel, tol_abs, des=0.0, label=None):
         S = torch.as_tensor(np.stack([encode(x, L) for x in seqs]),
                             device=dev).long()
         n = torch.tensor([len(x) for x in seqs], device=dev)
@@ -437,13 +478,7 @@ def phase_kernels(run: Run):
         qb = qb_c.transpose(1, 2)
         qbe = (qb * ff.fe).contiguous()
         n32 = n.to(torch.int32)
-        if k3:
-            q2v, = rec("q2", shape, lambda: ts.q2(qbe, sig, n32),
-                       lambda: ts.q2_plain(qbe, sig, n32), tol_rel, tol_abs,
-                       ops=float(sum(m * (m + 1) for m in ns)),
-                       inputs=(qbe, sig, n32))
-        else:
-            q2v = ts.q2(qbe, sig, n32)
+        q2v = q2_case(shape, qbe, sig, n32, tol_rel, tol_abs)
         zn = q1.gather(1, (n - 1)[:, None])[:, 0]
         q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]],
                           1).contiguous()
@@ -466,7 +501,7 @@ def phase_kernels(run: Run):
             note=dict(threads_a_row=occ["outside_T"]))
 
     main = [x for pair in zip(*_shuffled_pairs(FOLD_B // 2)) for x in pair]
-    fold_case(main, FOLD_L, TOL_STATE, TOL_PROB, k3=True)
+    fold_case(main, FOLD_L, TOL_STATE, TOL_PROB)
     corpus = [(fa1.seq, fa2.seq) for _, fa1, fa2 in corpus_pairs()]
     L1 = max(bucket_length(len(a)) for a, _ in corpus)
     L2 = max(bucket_length(len(b)) for _, b in corpus)
@@ -488,6 +523,21 @@ def phase_kernels(run: Run):
     # it by the plain version's scan and contraction
     fold_case(main[:8], FOLD_L, TOL_STATE, TOL_PROB, des=SMALL_SIGMA_DES,
               label=f"es+{SMALL_SIGMA_DES:g}")
+    # K3 on arbitrary qbe: full random matrices with n < L, so the lower
+    # triangle and the padding are nonzero (a small scale, one that
+    # saturates at the clamp, and L = 2048, where not even one tile of rows
+    # fits shared memory and K3 reads them from device memory)
+    rng = np.random.default_rng(23)
+    for B, L, scale in ((8, FOLD_L, 0.03), (8, FOLD_L, 1.0), (2, 2048, 0.03)):
+        qbe = torch.as_tensor(rng.random((B, L, L)) * scale,
+                              dtype=torch.float32, device=dev)
+        q2_case([B, L, f"random x {scale:g}"], qbe,
+                torch.as_tensor(rng.uniform(0.5, 1.5, B), dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(rng.integers(L // 2, L, B), dtype=torch.int32,
+                                device=dev),
+                *((TOL_STATE, TOL_PROB) if L <= 192
+                  else (TOL_STATE_288, TOL_PROB_288)))
 
     # ---- cofold: K4, K5 at the main path's shape, the cut at both edges,
     # the corpus shape and two long shapes (past the shared-memory sizes)
@@ -515,7 +565,8 @@ def phase_kernels(run: Run):
             region_bytes=lambda o: F.shape[0] * cells + nbytes(*small, *o))
         qb = qb_c.transpose(1, 2)
         zn = q1.gather(1, (n - 1)[:, None])[:, 0]
-        q2v = ts.q2((qb * ff.fe).contiguous(), sig, n)
+        q2v = q2_case(shape, (qb * ff.fe).contiguous(), sig,
+                      n.to(torch.int32), tol_rel, tol_abs)
         q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]],
                           1).contiguous()
         qx = qx_c.transpose(1, 2).contiguous()
@@ -541,21 +592,25 @@ def phase_kernels(run: Run):
         cofold_case(pairs, LL1, LL2, TOL_STATE_288, TOL_PROB_288)
 
     # ---- duplex sweeps (K6): the main path, the corpus, a long target
+    # (the launcher's picks), then every variant at the corpus shape
     duplex_case(run, res, tt, _shuffled_pairs(DUPLEX_B), DUPLEX_L, DUPLEX_L)
     duplex_case(run, res, tt, corpus, L1, L2)
     rng = np.random.default_rng(7)
     long = [("".join(rng.choice(acgu, 40)), "".join(rng.choice(acgu, 1990))),
             ("".join(rng.choice(acgu, 64)), "".join(rng.choice(acgu, 2048)))]
     duplex_case(run, res, tt, long, 64, 2048)
+    duplex_case(run, res, tt, corpus, L1, L2, _cuda.DUPLEX_VARIANTS)
     run.record["kernels"] = res
     torch.cuda.synchronize()
 
 
-def duplex_case(run: Run, res: dict, tt, pairs, L1, L2):
+def duplex_case(run: Run, res: dict, tt, pairs, L1, L2, variants=(None,)):
     """K6 at one shape: both directions in one launch against the plain
     sweeps, in the log domain (log M + lsc; -inf where M = 0, which must be
     the same cells), a relaunch bit-identical to the first launch, then the
-    posteriors of both against each other."""
+    posteriors of both against each other.  Each of variants = (lanes,
+    rings in shared memory, columns a group) names a kernel variant, None
+    the launcher's pick; the plain sweeps run once for all of them."""
     import torch
     from ractip_tpu_torch.ops import _cuda
     from ractip_tpu_torch.ops import duplex as td
@@ -565,44 +620,51 @@ def duplex_case(run: Run, res: dict, tt, pairs, L1, L2):
     ffw = td.duplex_factors_fw(tt, S1, S2, n1, n2)
     fbk = td.duplex_factors_bk(tt, S1, S2, n1, n2)
     kin = td._sweep_inputs(tt, ffw, fbk, n1, n2)
-    kfn = lambda: _cuda.launch_duplex_sweep(*kin)
     pfn = lambda: (td.sweep_plain(ffw, tt, False), td.sweep_plain(fbk, tt,
                                                                    True))
-    Mk, lk = kfn()
-    Mk2, lk2 = kfn()
-    same = torch.equal(Mk, Mk2) and torch.equal(lk, lk2)
-    (Mf, lf), (Mb, lb) = pfn()
+    ((Mf, lf), (Mb, lb)), plain_ms = timed_once(pfn)
     Mp, lp = torch.stack([Mf, Mb]), torch.stack([lf, lb])
-    lg = lambda M, l: M.double().log() + l.double()[..., None]
-    dab, _, nk, np_ = diff(lg(Mk, lk), lg(Mp, lp))
-    nonneg = bool((Mk >= 0).all()) and bool((Mp >= 0).all())
-    pk = td.posteriors(Mk[0], lk[0], Mk[1], lk[1], ffw.close)
     pp = td.posteriors(Mf, lf, Mb, lb, ffw.close)
-    prab, _, prk, prp = diff(pk.pr, pp.pr)
-    zab, _, zk, zp = diff(pk.log_zd, pp.log_zd)
-    z_ok = zab <= TOL_DUPLEX_LOGZ[1] + TOL_DUPLEX_LOGZ[0] * float(
-        pp.log_zd.abs().max())
-    ms, plain_ms = cuda_ms(kfn, 5), cuda_ms(pfn, 1)
     ops = 2 * duplex_ops(n1.tolist(), n2.tolist())
-    # the factors inside the chain regions (the kernel reads nothing past
-    # them), the other inputs and the outputs whole
-    nb = (2 * 11 * 4 * int((n1 * n2).sum()) + nbytes(*kin[1:], Mk, lk))
-    bms, by = bound(ops, nb)
-    ok = (dab <= TOL_DUPLEX_LOG and nonneg and same
-          and prab <= TOL_DUPLEX_PR and prk + prp + zk + zp == 0 and z_ok)
-    run.check("kernels", ok, f"duplex_sweep {[B, L1, L2]}: log-domain max abs "
-              f"{dab:.3e} (tol {TOL_DUPLEX_LOG:g}), zero cells kernel/plain "
-              f"{nk}/{np_}, pr max abs {prab:.3e} (tol {TOL_DUPLEX_PR:g}), "
-              f"log_zd max abs {zab:.3e} (rtol {TOL_DUPLEX_LOGZ[0]:g}, atol "
-              f"{TOL_DUPLEX_LOGZ[1]:g}), non-finite pr/log_zd "
-              f"{prk + prp}/{zk + zp}, relaunch bit-identical {same}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
-              f"({by})")
-    res.setdefault("duplex_sweep", []).append(dict(
-        shape=[B, L1, L2], max_abs=dab, zero_cells_kernel=nk,
-        zero_cells_plain=np_, pr_max_abs=prab, log_zd_max_abs=zab,
-        relaunch_same=same, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, ops=ops, bytes=nb))
+    lg = lambda M, l: M.double().log() + l.double()[..., None]
+    for variant in variants:
+        kfn = lambda: _cuda.launch_duplex_sweep(*kin, variant)
+        var = _cuda.duplex_variant(L2, B, variant)
+        Mk, lk = kfn()
+        Mk2, lk2 = kfn()
+        same = torch.equal(Mk, Mk2) and torch.equal(lk, lk2)
+        dab, _, nk, np_ = diff(lg(Mk, lk), lg(Mp, lp))
+        nonneg = bool((Mk >= 0).all()) and bool((Mp >= 0).all())
+        pk = td.posteriors(Mk[0], lk[0], Mk[1], lk[1], ffw.close)
+        prab, _, prk, prp = diff(pk.pr, pp.pr)
+        zab, _, zk, zp = diff(pk.log_zd, pp.log_zd)
+        z_ok = zab <= TOL_DUPLEX_LOGZ[1] + TOL_DUPLEX_LOGZ[0] * float(
+            pp.log_zd.abs().max())
+        ms = cuda_ms(kfn, 5)
+        # the factors inside the chain regions (the kernel reads nothing
+        # past them), the other inputs and the outputs whole
+        nb = (2 * 11 * 4 * int((n1 * n2).sum()) + nbytes(*kin[1:], Mk, lk))
+        bms, by = bound(ops, nb)
+        ok = (dab <= TOL_DUPLEX_LOG and nonneg and same
+              and prab <= TOL_DUPLEX_PR and prk + prp + zk + zp == 0
+              and z_ok)
+        shape = [B, L1, L2] + ([] if variant is None else ["forced"])
+        run.check("kernels", ok, f"duplex_sweep {shape}: log-domain max abs "
+                  f"{dab:.3e} (tol {TOL_DUPLEX_LOG:g}), zero cells "
+                  f"kernel/plain {nk}/{np_}, pr max abs {prab:.3e} (tol "
+                  f"{TOL_DUPLEX_PR:g}), log_zd max abs {zab:.3e} (rtol "
+                  f"{TOL_DUPLEX_LOGZ[0]:g}, atol {TOL_DUPLEX_LOGZ[1]:g}), "
+                  f"non-finite pr/log_zd {prk + prp}/{zk + zp}, relaunch "
+                  f"bit-identical {same}; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); lanes "
+                  f"{var['lanes']}, columns {var['columns']}, rings in "
+                  f"{'shared' if var['ring_in_shared'] else 'device'} "
+                  f"memory, {var['blocks_per_sm']} blocks an SM")
+        res.setdefault("duplex_sweep", []).append(dict(
+            shape=shape, max_abs=dab, zero_cells_kernel=nk,
+            zero_cells_plain=np_, pr_max_abs=prab, log_zd_max_abs=zab,
+            relaunch_same=same, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, ops=ops, bytes=nb, **var))
 
 
 def _options(model: str, **kw):
@@ -655,8 +717,9 @@ def _zstat(x0, xs) -> float:
     return (x0 - m) / np.sqrt(v) if v > 0 else float("inf")
 
 
-def _zscore_full(run: Run, timer_cls, model: str, band: bool):
-    """CopA x CopT against 1000 seeded decoys at chunk 256."""
+def _zscore_full(run: Run, timer_cls, model: str, band: bool, gold: dict):
+    """CopA x CopT against 1000 seeded decoys at chunk 256; the first 256
+    against the golden's seeded 256-decoy run (gold)."""
     import numpy as np
     import torch
     from ractip_tpu_torch.evaluate.corpus import record
@@ -681,11 +744,20 @@ def _zscore_full(run: Run, timer_cls, model: str, band: bool):
         f"{1000 / wall:.2f} decoy pipelines/s")
     say(f"  stages (s): {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     say(f"  kernel launches in this z-score: {json.dumps(launches)}")
-    # the first 256 seeded decoys are those of a 256-decoy run: the z a
-    # one-chunk run would give (not gated; for choosing a shorter run)
-    z256 = _zstat(st["e"], st["decoy_e"][:256])
-    zs256 = _zstat(st["es"], st["decoy_es"][:256])
-    say(f"  z, zs over the first 256 decoys: {z256:.4f}, {zs256:.4f}")
+    # the first 256 seeded decoys are those of a 256-decoy run (the seeded
+    # shuffles of a longer run begin with those of a shorter one, and the
+    # first chunk holds them): held to the JAX golden's 256-decoy run
+    n = gold["num_shuffling"]
+    z256 = _zstat(st["e"], st["decoy_e"][:n])
+    zs256 = _zstat(st["es"], st["decoy_es"][:n])
+    same = int(np.sum(np.abs(np.asarray(st["decoy_e"][:n])
+                             - np.asarray(gold["decoy_e"])) < TOL_DECOY_E))
+    run.check(tag, same == n and abs(z256 - gold["z"]) <= TOL_Z
+              and abs(zs256 - gold["zs"]) <= TOL_Z,
+              f"first {n} decoys against the JAX golden's seeded {n}-decoy "
+              f"run: {same}/{n} decoy energies identical (within "
+              f"{TOL_DECOY_E:g}), z {z256:.4f} vs {gold['z']:.4f}, zs "
+              f"{zs256:.4f} vs {gold['zs']:.4f} (tol {TOL_Z:g})")
     if band:
         run.check(tag, abs(z - Z_TPU) <= Z_BAND and abs(zs - ZS_TPU) <= Z_BAND,
                   f"z {z:.3f} within {Z_BAND} of {Z_TPU} and zs {zs:.3f} "
@@ -697,7 +769,7 @@ def _zscore_full(run: Run, timer_cls, model: str, band: bool):
               "all decoy structures feasible")
     return dict(z=z, zs=zs, e=st["e"], es=st["es"], wall=wall,
                 rate=1000 / wall, stages=stages, launches=launches,
-                z256=z256, zs256=zs256)
+                z256=z256, zs256=zs256, same256=same)
 
 
 def _zscore_parity(run: Run, model: str, gz: dict):
@@ -727,15 +799,23 @@ def phase_zscore(run: Run, timer_cls, model: str):
     nat = native.available()
     run.check(f"{model} zscore", nat, f"native uShuffle available: {nat}")
     # no TPU run of the duplex z-score exists: its parity is the golden's
-    run.record[f"{model} zscore"] = _zscore_full(run, timer_cls, model,
-                                                 band=model == "default")
+    run.record[f"{model} zscore"] = _zscore_full(
+        run, timer_cls, model, band=model == "default",
+        gold=golden_zscore(model, GOLD_DECOYS))
+
+
+def golden_zscore(model: str, decoys: int) -> dict:
+    """The JAX golden's seeded z-score with this many decoys: the default
+    model's file keys them "zscore" (64) and "zscore_<n>", the duplex
+    model's "zscore" -> "<n>"."""
+    if model == "duplex":
+        return json.loads(GOLDEN_DUPLEX.read_text())["zscore"][str(decoys)]
+    gold = json.loads(GOLDEN.read_text())
+    return gold["zscore" if decoys == 64 else f"zscore_{decoys}"]
 
 
 def phase_parity(run: Run, model: str):
-    gold = json.loads((GOLDEN if model == "default"
-                       else GOLDEN_DUPLEX).read_text())["zscore"]
-    rec = _zscore_parity(run, model, gold if model == "default"
-                         else gold["64"])
+    rec = _zscore_parity(run, model, golden_zscore(model, 64))
     run.record.setdefault(f"{model} zscore", {}).update(rec)
 
 

@@ -33,7 +33,6 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block on the H100
 RING_ROWS = 68             # the scans' column rings: 2 x 32 window + 4 raw
 RING_S, OM_S = 1, 2        # placement bits of rt_*_mode: in shared memory
 
@@ -121,9 +120,13 @@ def lib() -> ctypes.CDLL:
             for f in (dll.rt_inside_mode, *occ):
                 f.restype = I
             dll.rt_q2.argtypes = [P] * 4 + [I, I, P]
-            dll.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 3 + [P]
-            dll.rt_duplex_smem.argtypes = [I, I]
-            dll.rt_duplex_smem.restype = ctypes.c_longlong
+            dll.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 4 + [P]
+            dll.rt_duplex_scratch.argtypes = [I, I, I]
+            dll.rt_duplex_scratch.restype = ctypes.c_longlong
+            for f in (dll.rt_duplex_lanes, dll.rt_duplex_columns,
+                      dll.rt_duplex_occupancy):
+                f.argtypes = [I, I, I]
+                f.restype = I
             for f in (dll.rt_inside, dll.rt_outside, dll.rt_q2,
                       dll.rt_duplex_sweep):
                 f.restype = I
@@ -256,11 +259,43 @@ def launch_q2(qbe, sig, n):
 
 
 
-def launch_duplex_sweep(fac, w2, bk, n1, n2):
+# K6's variants: (lanes a column group, rings in shared memory, columns a
+# group); with the rings in device memory (past L2 ~ 600) only 1 or 2 lanes
+# of two columns
+DUPLEX_VARIANTS = tuple((g, True, j) for g in (1, 2, 4, 8) for j in (2, 4)) \
+    + ((1, False, 2), (2, False, 2))
+
+
+def _duplex_force(variant) -> int:
+    """The C side's code of a K6 variant (lanes, ring_in_shared, columns);
+    0: the launcher's own pick."""
+    if variant is None:
+        return 0
+    if tuple(variant) not in DUPLEX_VARIANTS:
+        raise ValueError(f"K6 has no variant {variant}: {DUPLEX_VARIANTS}")
+    lanes, ring_in_shared, cols = variant
+    return lanes | (0 if ring_in_shared else 16) | (32 if cols == 4 else 0)
+
+
+def duplex_variant(L2: int, B: int, variant=None) -> dict:
+    """The K6 variant launched for B instances at L2 (or the one named by
+    variant = (lanes, ring_in_shared, columns)): lanes and columns a group,
+    whether its rings sit in shared memory, and blocks an SM (0 where the
+    runtime cannot say)."""
+    dll, f = lib(), _duplex_force(variant)
+    return dict(lanes=dll.rt_duplex_lanes(L2, B, f),
+                columns=dll.rt_duplex_columns(L2, B, f),
+                ring_in_shared=dll.rt_duplex_scratch(L2, B, f) == 0,
+                blocks_per_sm=dll.rt_duplex_occupancy(L2, B, f))
+
+
+def launch_duplex_sweep(fac, w2, bk, n1, n2, variant=None):
     """K6: fac [2, 11, B, L1, L2] (the forward, then the backward factors),
     n1, n2 [B] int32 (the chain region; cells past it are written as 0)
-    -> (M [2, B, L1, L2], lsc [2, B, L1]).  The W-row rings live in shared
-    memory where they fit, else in a device-memory scratch allocated here."""
+    -> (M [2, B, L1, L2], lsc [2, B, L1]).  The rings live in shared memory
+    where they fit, else in a device-memory scratch allocated here; variant
+    = (lanes, ring_in_shared, columns), one of DUPLEX_VARIANTS, names one in
+    place of the launcher's pick (the checks run every variant)."""
     if fac.dim() != 5:
         raise ValueError(f"duplex sweep takes [2, 11, B, L1, L2] factors, "
                          f"got {tuple(fac.shape)}")
@@ -270,14 +305,14 @@ def launch_duplex_sweep(fac, w2, bk, n1, n2):
     _expect(bk, (W,))
     _expect(n1, (B,), torch.int32)
     _expect(n2, (B,), torch.int32)
-    dll = lib()
+    dll, force = lib(), _duplex_force(variant)
     ring = None
-    if dll.rt_duplex_smem(L2, 1) > SMEM_PER_BLOCK:
-        ring = torch.empty(2, B, 3, W, L2, dtype=torch.float32,
-                           device=fac.device)
+    scratch = dll.rt_duplex_scratch(L2, B, force)
+    if scratch:
+        ring = torch.empty(scratch, dtype=torch.float32, device=fac.device)
     M = torch.empty(2, B, L1, L2, dtype=torch.float32, device=fac.device)
     lsc = torch.empty(2, B, L1, dtype=torch.float32, device=fac.device)
     _run("duplex_sweep", dll.rt_duplex_sweep, _ptr(fac), _ptr(w2), _ptr(bk),
          _ptr(n1), _ptr(n2), _ptr(M), _ptr(lsc), _ptr(ring), B, L1, L2,
-         _stream())
+         force, _stream())
     return M, lsc

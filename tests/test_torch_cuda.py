@@ -7,8 +7,8 @@ with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 Tolerances: inside states and ob rtol 1e-4 (f32 summation order; 1e-3 at
 L > 192 and Lc = 1024, the gate of the Lc = 288 corpus shape; every
 comparison also allows 1e-30 absolute), pair probabilities atol
-1e-5; the duplex sweeps (K6) in the log domain to atol 5e-4 with identical
-support, as the JAX package gates its Pallas sweep."""
+1e-5; K3's q2 rtol 1e-4; the duplex sweeps (K6) in the log domain to atol
+5e-4 with identical support, as the JAX package gates its Pallas sweep."""
 
 import numpy as np
 import pytest
@@ -49,12 +49,15 @@ def _close(a, b, rtol):
 
 
 def test_fold_kernels_match_plain(dev):
-    """K1, K3, K2 over whole buckets, then K1 and K2 given the lengths: n < L
-    (L = 64), a small sigma (es + 500: the padding's qm leaves the normal
-    floats, L = 96), L = 192 and L = 256 at B = 512 and B = 8 (qm in device
-    memory; K1 at two and four threads a row) and L = 1024 (rings and qm in
-    device memory).  Whole tables, padding included: the same non-finite
-    cells, values within the tolerance, a relaunch bit-identical."""
+    """K1, K3, K2 over whole buckets, then K1, K3 and K2 given the lengths:
+    n < L (L = 64), a small sigma (es + 500: the padding's qm leaves the
+    normal floats, L = 96), L = 192 and L = 256 at B = 512 and B = 8 (qm in
+    device memory; K1 at two and four threads a row) and L = 1024 (rings and
+    qm in device memory); K3 also on full random qbe with n < L (lower
+    triangle and padding nonzero; small, saturating at the clamp, and at
+    L = 2048, where K3 reads the rows from device memory).
+    Whole tables, padding included: the same non-finite cells, values
+    within the tolerance, a relaunch bit-identical."""
     tt = ts.as_tables(get_default_params(), dev)
     S, n = _seqs(0, 16, 64, 40)
     S, n = torch.as_tensor(S, device=dev), torch.as_tensor(n, device=dev)
@@ -75,6 +78,17 @@ def test_fold_kernels_match_plain(dev):
     oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2k, w2k,
              bulge_k, sig, pows)
     _close(ts.outside(*oargs), ts.outside_plain(*oargs), 1e-4)
+    rng = np.random.default_rng(23)
+    for B, L, scale, rtol in ((8, 96, 0.03, 1e-4), (8, 96, 1.0, 1e-4),
+                              (2, 2048, 0.03, 1e-3)):
+        qbe = torch.as_tensor(rng.random((B, L, L)) * scale,
+                              dtype=torch.float32, device=dev)
+        sg = torch.as_tensor(rng.uniform(0.5, 1.5, B), dtype=torch.float32,
+                             device=dev)
+        nr = torch.as_tensor(rng.integers(L // 2, L, B), dtype=torch.int32,
+                             device=dev)
+        _same((ts.q2(qbe, sg, nr),), (ts.q2(qbe, sg, nr),),
+              (ts.q2_plain(qbe, sg, nr),), rtol)
     rng = np.random.default_rng(9)
     _fold_length_aware(dev, tt, rng, 64, n.tolist(), 0.0, 1e-4)
     _fold_length_aware(dev, tt, rng, 96, [70, 70, 48, 90], 500.0, 1e-4)
@@ -114,7 +128,11 @@ def _fold_length_aware(dev, tt, rng, L, ns, des, rtol):
         pad = torch.arange(L, device=dev)[None, :, None] >= n[:, None, None]
         assert bool(((qm_c > 0) & (qm_c < torch.finfo(torch.float32).tiny)
                      & pad).any())
-    q2v = ts.q2((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+    qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+    n32 = n.to(torch.int32)
+    q2v = ts.q2(qbe, sig, n32)
+    _same((q2v,), (ts.q2(qbe, sig, n32),), (ts.q2_plain(qbe, sig, n32),),
+          rtol)
     q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1).contiguous()
     oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c, q1pad, q2v, w2k,
              bulge_k, sig, pows)
@@ -210,8 +228,11 @@ def test_kernel_wrappers_reject_float64(dev):
 
 @pytest.mark.parametrize("shape", [(4, 48, 32), (2, 64, 2048)])
 def test_duplex_sweep_kernel_matches_plain(dev, shape):
-    """Both directions in one launch; L2 = 2048 puts the rings in device
-    memory."""
+    """Both directions in one launch, the launcher's pick (L2 = 2048 puts
+    the rings in device memory); at the small shape also every variant
+    (_cuda.DUPLEX_VARIANTS: 1, 2, 4, 8 lanes a column group and 2 or 4
+    columns a group with the rings in shared memory; 1 or 2 lanes of 2
+    columns with them in device memory), each relaunch bit-identical."""
     B, L1, L2 = shape
     tt = ts.as_tables(get_default_params(), dev)
     S1, n1 = _seqs(4, B, L1, L1 // 2)
@@ -222,14 +243,24 @@ def test_duplex_sweep_kernel_matches_plain(dev, shape):
     before = _cuda.LAUNCHES["duplex_sweep"]
     kern = td.sweep(tt, ffw, fbk, args[2], args[3])
     assert _cuda.LAUNCHES["duplex_sweep"] == before + 1
-    for (Mk, lk), (ff, rev) in zip(kern, ((ffw, False), (fbk, True))):
-        Mp, lp = td.sweep_plain(ff, tt, rev)
-        Mk, Mp = Mk.double().cpu(), Mp.double().cpu()
-        assert torch.equal(Mk > 0, Mp > 0)
-        pos = Mp > 0
-        lg = lambda M, l: (torch.where(pos, M, torch.ones_like(M)).log()
-                           + l.double().cpu()[:, :, None])[pos]
-        assert float((lg(Mk, lk) - lg(Mp, lp)).abs().max()) <= 5e-4
+    plain = [td.sweep_plain(ff, tt, rev)
+             for ff, rev in ((ffw, False), (fbk, True))]
+    kin = td._sweep_inputs(tt, ffw, fbk, args[2], args[3])
+    runs = [kern]
+    if L2 <= 1024:
+        for v in _cuda.DUPLEX_VARIANTS:
+            M, lsc = _cuda.launch_duplex_sweep(*kin, v)
+            M2, lsc2 = _cuda.launch_duplex_sweep(*kin, v)
+            assert torch.equal(M, M2) and torch.equal(lsc, lsc2), v
+            runs.append(((M[0], lsc[0]), (M[1], lsc[1])))
+    for run in runs:
+        for (Mk, lk), (Mp, lp) in zip(run, plain):
+            Mk, Mp = Mk.double().cpu(), Mp.double().cpu()
+            assert torch.equal(Mk > 0, Mp > 0)
+            pos = Mp > 0
+            lg = lambda M, l: (torch.where(pos, M, torch.ones_like(M)).log()
+                               + l.double().cpu()[:, :, None])[pos]
+            assert float((lg(Mk, lk) - lg(Mp, lp)).abs().max()) <= 5e-4
 
 
 def test_duplex_wrapper_rejects_float64(dev):

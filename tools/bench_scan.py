@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the scan kernels K1 (inside), K2 (outside), K4 (co_inside) and K5
-(co_outside) of one or more copies of the port on one GPU, each against its
-plain version.
+"""Time the DP kernels K1 (inside), K2 (outside), K3 (q2), K4 (co_inside),
+K5 (co_outside) and K6 (duplex_sweep) of one or more copies of the port on
+one GPU, each against its plain version.
 
     python3 tools/bench_scan.py [--trees DIR,DIR,...] [--shapes fold,main]
                                 [--reps 5] [--rounds 2]
@@ -14,7 +14,7 @@ two versions are compared inside one call on one card.
 
 Fold shapes (K1, K2; the scale energies the adaptive loop picks):
   fold         B=512, L=96: 256 shuffled CopA and 256 shuffled CopT (70 nt),
-               the main path's fold;
+               the main path's fold (foldone: its first instance alone);
   fold64       B=16, L=64: random sequences of 40-64 nt (a short run, as
                for compute-sanitizer);
   fold128      B=8, L=128: the bundled corpus's first strands;
@@ -22,10 +22,25 @@ Fold shapes (K1, K2; the scale energies the adaptive loop picks):
   foldxlong    B=2, L=1024: random sequences of 1000 and 1024 nt (rings and
                tables in device memory).
 Cofold shapes (K4, K5): main (B=256, s1 = 70 nt of shuffled CopA, s2 =
-shuffled CopT, buckets 96 + 96), edges (B=4, Lc = 192, the cut at 1 and at
+shuffled CopT, buckets 96 + 96; mainone: its first pair alone), edges (B=4, Lc = 192, the cut at 1 and at
 n - 1), corpus (the bundled 8 pairs, Lc = 288), long (B=2, Lc = 512, random
 pairs of 200 + 270 and 224 + 288 nt), xlong (B=2, Lc = 1024, 480 + 500 and
 512 + 512 nt).
+fold192, fold256 (B=512) and fold192x8, fold256x8 (B=8): random sequences
+of L-40..L nt, as chip_smoke.py's phase 3 draws them (qm in device memory).
+K3 shapes: q2-<fold or cofold shape> (q2 on the qbe the plain inside scan
+gives for that shape: q2-fold is the fold's B=512, L=96, q2-main the main
+cofold's B=256, Lc=192), and q2-random (B=8, L=96) and q2-random2048 (B=2,
+L=2048: the rows too wide for shared memory): full random qbe with n < L,
+lower triangle and padding nonzero.
+A shape's first instance alone (foldone, mainone, duplexone) gives a
+kernel's chain floor on this card: one instance's rows, each step waiting
+on the one before, with nothing else sharing the SM.
+K6 shapes (both sweeps in one launch, the launcher's pick): duplex (B=256,
+shuffled CopA x CopT, 96 x 96: the --duplex main path; duplexone: its
+first pair alone), duplexcorpus (the
+bundled 8 pairs, 128 x 160), duplexlong (B=2, random 40 x 1990 and
+64 x 2048 nt, 64 x 2048: rings in device memory).
 
 A tree whose wrappers take no lengths n runs without them.  One JSON line
 per tree and shape (times, max relative difference of whole tables against
@@ -45,7 +60,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FOLD_SHAPES = ("fold", "fold64", "fold128", "fold160", "foldxlong")
+FOLD_SHAPES = ("fold", "foldone", "fold64", "fold128", "fold160",
+               "foldxlong", "fold192", "fold256", "fold192x8", "fold256x8")
+DUPLEX_SHAPES = ("duplex", "duplexone", "duplexcorpus", "duplexlong")
 
 
 def _rand(rng, k):
@@ -57,13 +74,18 @@ def _fold_seqs(shape: str):
     import numpy as np
     from ractip_tpu_torch.evaluate.corpus import corpus_pairs, record
     from ractip_tpu_torch.pipeline.shuffle import shuffle_batch
-    if shape == "fold":
+    if shape in ("fold", "foldone"):
         a, b = record("CopA.fa").seq, record("CopT.fa").seq
-        return shuffle_batch(a, 256, 11) + shuffle_batch(b, 256, 12), 96
+        seqs = shuffle_batch(a, 256, 11) + shuffle_batch(b, 256, 12)
+        return seqs[:1 if shape == "foldone" else None], 96
     if shape in ("fold128", "fold160"):
         k = 0 if shape == "fold128" else 1
         return [(f1.seq, f2.seq)[k] for _, f1, f2 in corpus_pairs()], \
             int(shape[4:])
+    if shape.startswith(("fold192", "fold256")):
+        L, B = int(shape[4:7]), 8 if shape.endswith("x8") else 512
+        rng = np.random.default_rng(19)
+        return [_rand(rng, int(k)) for k in rng.integers(L - 40, L + 1, B)], L
     rng = np.random.default_rng(17)
     if shape == "fold64":
         return [_rand(rng, int(k)) for k in rng.integers(40, 65, 16)], 64
@@ -75,9 +97,10 @@ def _pairs(shape: str):
     from ractip_tpu_torch.evaluate.corpus import corpus_pairs, record
     from ractip_tpu_torch.ops.seq import bucket_length
     from ractip_tpu_torch.pipeline.shuffle import shuffle_batch
-    if shape == "main":
+    if shape in ("main", "mainone"):
         a, b = record("CopA.fa").seq, record("CopT.fa").seq
         pairs = list(zip(shuffle_batch(a, 256, 11), shuffle_batch(b, 256, 12)))
+        pairs = pairs[:1 if shape == "mainone" else None]
         return [(x[:70], y) for x, y in pairs], 96, 96
     if shape == "edges":     # cut = 1 and cut = n - 1
         a, b = record("CopA.fa").seq, record("CopT.fa").seq
@@ -87,6 +110,16 @@ def _pairs(shape: str):
         pairs = [(f1.seq, f2.seq) for _, f1, f2 in corpus_pairs()]
         return (pairs, max(bucket_length(len(x)) for x, _ in pairs),
                 max(bucket_length(len(y)) for _, y in pairs))
+    if shape in ("duplex", "duplexone"):
+        a, b = record("CopA.fa").seq, record("CopT.fa").seq
+        pairs = list(zip(shuffle_batch(a, 256, 11), shuffle_batch(b, 256, 12)))
+        return pairs[:1 if shape == "duplexone" else None], 96, 96
+    if shape == "duplexcorpus":
+        return _pairs("corpus")
+    if shape == "duplexlong":
+        rng = np.random.default_rng(7)
+        return [(_rand(rng, 40), _rand(rng, 1990)),
+                (_rand(rng, 64), _rand(rng, 2048))], 64, 2048
     rng = np.random.default_rng(13)
     rs = lambda k: _rand(rng, k)
     if shape == "long":
@@ -127,6 +160,8 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
     dev = torch.device(device)
     if dev.type == "cuda":
         _cuda.build(force=True)
+        # the plain sweeps' conv1d in full float32, as chip_smoke.py runs it
+        torch.backends.cudnn.allow_tf32 = False
     tt = ts.as_tables(get_default_params(), dev)
     out = []
     t = lambda v: torch.as_tensor(np.asarray(v), device=dev)
@@ -222,8 +257,82 @@ def one(tree: Path, shapes, reps: int, device: str) -> list[dict]:
                     co_inside_ms=ms(kin), co_outside_ms=ms(kout),
                     blocks_per_sm=occupancy(L1 + L2, True, len(pairs)))
 
+    def q2(shape):
+        """K3 on the qbe the plain inside scan gives for a fold or cofold
+        shape (q2-<shape>), or on full random qbe (q2-random)."""
+        base = shape[3:]
+        if base.startswith("random"):
+            B, L = (2, 2048) if base == "random2048" else (8, 96)
+            rng = np.random.default_rng(23)
+            qbe = t(rng.random((B, L, L)) * 0.03).float()
+            sig = t(rng.uniform(0.5, 1.5, B)).float()
+            n = t(rng.integers(L // 2, L, B))
+        elif base in FOLD_SHAPES:
+            seqs, L = _fold_seqs(base)
+            S = t(np.stack([encode(x, L) for x in seqs])).long()
+            n = t([len(x) for x in seqs])
+            es = ts.batch_fold(tt, S, n, dev)["es"]
+            sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+            ff = fold_factors(tt, S, n, sig)
+            cut = None
+        else:
+            pairs, L1, L2 = _pairs(base)
+            S1 = t(np.stack([encode(a, L1) for a, _ in pairs])).long()
+            S2 = t(np.stack([encode(b, L2) for _, b in pairs])).long()
+            n1 = t([len(a) for a, _ in pairs])
+            n2 = t([len(b) for _, b in pairs])
+            S = tc._pack_concat(S1, S2, n1)
+            n, cut = n1 + n2, n1
+            es = tc.batch_cofold(tt, S1, S2, n1, n2, dev)["es"]
+            sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+            ff = co_factors(tt, S, n, cut, sig)
+        if not base.startswith("random"):
+            w2k, bulge_k, pows = sig_tables(tt, sig)
+            args = (ts.stack_cols(ff), w2k, bulge_k, sig, pows) + (
+                () if cut is None else (cut,))
+            qb_c = ts.inside_plain(*args)[1]
+            qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+        n32 = n.to(torch.int32)
+        kfn = lambda: ts.q2(qbe, sig, n32)
+        k = kfn()
+        p = ts.q2_plain(qbe, sig, n32)
+        return dict(B=qbe.shape[0], L=qbe.shape[-1],
+                    n_mean=float(n.float().mean()), q2_rel=rel(k, p),
+                    q2_max_abs=float((k.double() - p.double()).abs().max()),
+                    relaunch_same=torch.equal(k, kfn()), q2_ms=ms(kfn))
+
+    def duplex(shape):
+        """K6, both sweeps in one launch (the launcher's pick), against the
+        plain sweeps in the log domain (the same zero cells)."""
+        from ractip_tpu_torch.ops import duplex as td
+        pairs, L1, L2 = _pairs(shape)
+        S1 = t(np.stack([encode(a, L1) for a, _ in pairs])).long()
+        S2 = t(np.stack([encode(b, L2) for _, b in pairs])).long()
+        n1, n2 = t([len(a) for a, _ in pairs]), t([len(b) for _, b in pairs])
+        ffw = td.duplex_factors_fw(tt, S1, S2, n1, n2)
+        fbk = td.duplex_factors_bk(tt, S1, S2, n1, n2)
+        kfn = lambda: td.sweep(tt, ffw, fbk, n1, n2)
+        k, again = kfn(), kfn()
+        p = (td.sweep_plain(ffw, tt, False), td.sweep_plain(fbk, tt, True))
+        worst, zeros = 0.0, True
+        for (Mk, lk), (Mp, lp) in zip(k, p):
+            zeros &= torch.equal(Mk > 0, Mp > 0)
+            pos = Mp > 0
+            lg = lambda M, lsc: (M.double().log()
+                                 + lsc.double()[..., None])[pos]
+            worst = max(worst, float((lg(Mk, lk) - lg(Mp, lp)).abs().max()))
+        same = all(torch.equal(x, y) for a, b in zip(k, again)
+                   for x, y in zip(a, b))
+        var = (_cuda.duplex_variant(L2, len(pairs))
+               if dev.type == "cuda" and hasattr(_cuda, "duplex_variant")
+               else None)
+        return dict(B=len(pairs), L1=L1, L2=L2, log_max_abs=worst,
+                    zero_cells_same=zeros, relaunch_same=same,
+                    duplex_ms=ms(kfn), variant=var)
+
     for shape in shapes:
-        fn = fold if shape in FOLD_SHAPES else cofold
+        fn = (fold if shape in FOLD_SHAPES else q2 if shape.startswith("q2-")
+              else duplex if shape in DUPLEX_SHAPES else cofold)
         rec = dict(tree=str(tree), shape=shape, **fn(shape))
         print(json.dumps(rec), flush=True)
         out.append(rec)

@@ -1,7 +1,9 @@
-// CPU emulation of the CUDA features the scan kernels use: one std::thread
-// per CUDA thread, blocks one after another, barriers for __syncthreads and
-// for the lanes a shuffle names.  Shared memory is a heap buffer filled
-// with NaN (uninitialised reads show), so ASan sees its bounds.
+// CPU emulation of the CUDA features the DP kernels use: one std::thread
+// per CUDA thread, blocks one after another (grids and blocks of up to two
+// dimensions), barriers for __syncthreads, for __syncwarp and for the lanes
+// a shuffle names.  Shared memory is a heap buffer filled with NaN
+// (uninitialised reads show), so ASan sees its bounds.  cp.async is a plain
+// copy (the kernels' own fallback without __CUDA_ARCH__).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -26,6 +28,10 @@
 #define __launch_bounds__(x)
 #define __restrict__
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 inline thread_local dim3_ threadIdx;
 inline dim3_ blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
@@ -33,6 +39,8 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
+typedef int cudaError_t;
 template <class T> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t) { *n = 1; return 0; }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -40,6 +48,8 @@ inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 
 using std::min; using std::max;
 inline float __logf(float x) { return logf(x); }
 inline float __expf(float x) { return expf(x); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 namespace emu {
 using Bar = std::barrier<>;
 inline std::unique_ptr<Bar> block_bar;
@@ -68,11 +78,13 @@ inline float shfl(unsigned mask, float v, int src) {
   return r;
 }
 template <class F>
-void launch(int grid, int block, size_t smem, cudaStream_t, F fn) {
-  gridDim.x = grid; blockDim.x = block;
+void launch(dim3 grid, dim3 blk, size_t smem, cudaStream_t, F fn) {
+  const int block = blk.x;
+  gridDim.x = grid.x; gridDim.y = grid.y; blockDim.x = block;
   const int nw = (block + 31) / 32;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
+  for (unsigned by = 0; by < grid.y; ++by)
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx.x = b; blockIdx.y = by;
     std::vector<float> sh(smem / sizeof(float), std::numeric_limits<float>::quiet_NaN());
     g_sh = sh.data();
     block_bar = std::make_unique<Bar>(block);
@@ -80,7 +92,7 @@ void launch(int grid, int block, size_t smem, cudaStream_t, F fn) {
     slots.assign(nw * 32, 0.f);
     for (int w = 0; w < nw; ++w) {
       warp_bars[{w, 0xffffffffu}] = std::make_unique<Bar>(32);
-      for (int t : {2, 4})
+      for (int t : {2, 4, 8, 16})
         for (int g = 0; g < 32; g += t)
           warp_bars[{w, ((1u << t) - 1u) << g}] = std::make_unique<Bar>(t);
     }
@@ -102,7 +114,8 @@ inline int __syncthreads_or(int p) {
   __syncthreads();
   return r;
 }
-inline void __syncwarp() {}
+inline void __syncwarp(unsigned m = 0xffffffffu) { emu::wbar(m).arrive_and_wait(); }
+inline float __shfl_sync(unsigned m, float v, int s) { return emu::shfl(m, v, s); }
 inline float __shfl_xor_sync(unsigned m, float v, int o) { return emu::shfl(m, v, (int)(threadIdx.x & 31) ^ o); }
 inline float __shfl_down_sync(unsigned m, float v, int d) {
   const int s = (threadIdx.x & 31) + d; return emu::shfl(m, v, s < 32 ? s : -1); }

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Run the scan kernels' CUDA sources (K1/K4 inside.cu, K2/K5 outside.cu) on
-the CPU and hold them against their plain PyTorch versions.
+"""Run the DP kernels' CUDA sources (K1/K4 inside.cu, K2/K5 outside.cu, K3
+q2.cu, K6 duplex.cu) on the CPU and hold them against their plain PyTorch
+versions.
 
     python3 tools/cuda_emu/emulate.py fold L [dES]      # K1, K2 at bucket L
     python3 tools/cuda_emu/emulate.py cofold L1 [B] [dES]  # K4, K5, Lc = 2 L1
+    python3 tools/cuda_emu/emulate.py q2 L [B]          # K3 at bucket L
+    python3 tools/cuda_emu/emulate.py duplex L1 L2 [B]  # K6, every variant
 
 For a machine without nvcc or a GPU: g++ compiles the sources against
 tools/cuda_emu/cuda_runtime.h (one std::thread per CUDA thread, barriers
@@ -18,8 +21,16 @@ lengths n < L (and one n = L), given to the kernels; the cofold batch holds
 the cut at both edges.  dES raises every scale energy (small sigma: the
 subnormal padding path); the fold runs its batch at the default scale and
 then at dES (default 500: at L = 96 the padding's qm leaves the normal
-floats while the swept cells stay normal).  The build goes to
-tools/cuda_emu/build/.
+floats while the swept cells stay normal).  The q2 mode holds K3 at
+lengths n < L on qbe from a fold and on full random matrices (nonzero lower
+triangle and padding; one small, one that saturates at the clamp).  The
+duplex mode runs each K6 variant (1, 2, 4 and 8 lanes a column group and 2 or 4
+columns a group with the rings in shared memory; 1 or 2 lanes of 2 columns
+with them in device memory) on pairs with n1 < L1 and n2 < L2
+(and one filling both), both directions in one launch, in the log domain
+with the same zero cells.  Not modelled: the card's memory model and
+timing, cp.async (a plain copy here), and clusters or TMA (the kernels use
+neither).  The build goes to tools/cuda_emu/build/.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ def build() -> Path:
     BUILD.mkdir(exist_ok=True)
     csrc = ROOT / "ractip_tpu_torch" / "csrc"
     srcs = []
-    for name in ("inside", "outside"):
+    for name in ("inside", "outside", "q2", "duplex"):
         src = (csrc / f"{name}.cu").read_text()
         src = src.replace("extern __shared__ float sh[];",
                           "float* sh = emu::g_sh;")
@@ -87,7 +98,16 @@ def main() -> int:
         f.restype = I
     lib.rt_inside_mode.argtypes = [I]
     lib.rt_outside_mode.argtypes = [I, I, I]
-    for f in (lib.rt_inside_mode, lib.rt_outside_mode):
+    lib.rt_q2.argtypes = [P] * 4 + [I, I, P]
+    lib.rt_duplex_sweep.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.rt_duplex_scratch.argtypes = [I, I, I]
+    lib.rt_duplex_scratch.restype = ctypes.c_longlong
+    for f in (lib.rt_duplex_lanes, lib.rt_duplex_columns,
+              lib.rt_duplex_occupancy):
+        f.argtypes = [I, I, I]
+    for f in (lib.rt_inside_mode, lib.rt_outside_mode, lib.rt_q2,
+              lib.rt_duplex_sweep, lib.rt_duplex_lanes,
+              lib.rt_duplex_columns, lib.rt_duplex_occupancy):
         f.restype = I
     # the launchers, on CPU tensors
     _cuda._lib, _cuda._stream = lib, lambda: None
@@ -115,6 +135,12 @@ def main() -> int:
     enc = lambda ls, L: torch.as_tensor(np.stack([encode(rs(m), L)
                                                   for m in ls])).long()
     a = sys.argv[1:]
+    if a[0] == "q2":
+        return emulate_q2(tt, enc, rel, timed, int(a[1]),
+                          int(a[2]) if len(a) > 2 else 4)
+    if a[0] == "duplex":
+        return emulate_duplex(tt, enc, timed, int(a[1]), int(a[2]),
+                              int(a[3]) if len(a) > 3 else 3)
     if a[0] == "fold":
         L = int(a[1])
         ns = [L, L - 7, L // 2]
@@ -179,6 +205,77 @@ def main() -> int:
                              bulge_k, sig, pows, cut)
     print(f"K5 max rel {rel(o, po):.3e} ({s:.1f} s)", flush=True)
     return 0
+
+
+def emulate_q2(tt, enc, rel, timed, L, B):
+    """K3 at bucket L: qbe of a fold at lengths n < L (up to L = 256), then
+    full random matrices (lower triangle and padding nonzero), small and
+    saturating; past L = 256 the random ones alone (L = 1024: the rows in
+    shared memory one tile a pass; L = 2048: read from device memory)."""
+    import numpy as np
+    import torch
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.ops import scan as ts
+    from ractip_tpu_torch.ops.factors import fold_factors
+    from ractip_tpu_torch.params.boltz import sig_tables
+    cases = []
+    if L <= 256:
+        ns = [L, L - 7, L // 2, 1, 33][:B]
+        S, n = enc(ns, L), torch.tensor(ns)
+        sig = torch.exp(-torch.full((len(ns),), ts.SCALE_E0)
+                        / tt.scalar(tt.bt.kt))
+        ff = fold_factors(tt, S, n, sig)
+        w2k, bulge_k, pows = sig_tables(tt, sig)
+        qb_c = ts.inside_plain(ts.stack_cols(ff), w2k, bulge_k, sig, pows)[1]
+        cases.append(("fold", (qb_c.transpose(1, 2) * ff.fe).contiguous(),
+                      sig, n.to(torch.int32)))
+    rng = np.random.default_rng(3)
+    for label, hi in (("random", 0.03), ("random, saturating", 1.0)):
+        qbe = torch.as_tensor(rng.random((2, L, L)) * hi, dtype=torch.float32)
+        cases.append((label, qbe, torch.tensor([0.9, 1.1]),
+                      torch.tensor([L - 5, L // 3], dtype=torch.int32)))
+    for label, qbe, sg, nn in cases:
+        k, s = timed(lambda: _cuda.launch_q2(qbe, sg, nn))
+        print(f"K3 {label} {list(qbe.shape)}: max rel "
+              f"{rel(k, ts.q2_plain(qbe, sg, nn)):.3e} ({s:.1f} s)",
+              flush=True)
+    return 0
+
+
+def emulate_duplex(tt, enc, timed, L1, L2, B):
+    """Every K6 variant on pairs with n1 < L1, n2 < L2 (one filling both),
+    in the log domain, with the same zero cells and a relaunch identical."""
+    import torch
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.ops import duplex as td
+    N1 = [L1 - 3, L1, L1 // 2][:B]
+    N2 = [L2 - 5, L2, L2 // 3][:B]
+    S1, S2 = enc(N1, L1), enc(N2, L2)
+    n1, n2 = torch.tensor(N1), torch.tensor(N2)
+    ffw = td.duplex_factors_fw(tt, S1, S2, n1, n2)
+    fbk = td.duplex_factors_bk(tt, S1, S2, n1, n2)
+    kin = td._sweep_inputs(tt, ffw, fbk, n1, n2)
+    (Mf, lf), (Mb, lb) = (td.sweep_plain(ffw, tt, False),
+                          td.sweep_plain(fbk, tt, True))
+    Mp, lp = torch.stack([Mf, Mb]), torch.stack([lf, lb])
+    lg = lambda M, l: M.double().log() + l.double()[..., None]
+    picked = _cuda.duplex_variant(L2, B)
+    print(f"K6 launcher's pick at L2={L2}, B={B}: {picked}", flush=True)
+    ok = True
+    for v in _cuda.DUPLEX_VARIANTS:
+        lanes, shared, cols = v
+        (Mk, lk), s = timed(lambda: _cuda.launch_duplex_sweep(*kin, v))
+        Mk2, lk2 = _cuda.launch_duplex_sweep(*kin, v)
+        same = torch.equal(Mk, Mk2) and torch.equal(lk, lk2)
+        zeros = torch.equal(Mk > 0, Mp > 0)
+        pos = Mp > 0
+        d = float((lg(Mk, lk) - lg(Mp, lp))[pos].abs().max())
+        ok &= zeros and same and d <= 5e-4
+        print(f"K6 lanes {lanes}, columns {cols}, rings in "
+              f"{'shared' if shared else 'device'} memory: log-domain "
+              f"max abs {d:.3e} (tol 5e-4), zero cells same {zeros}, "
+              f"relaunch identical {same} ({s:.1f} s)", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
