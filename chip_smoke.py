@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (ractip_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(--only kernels,corpus,zscore,duplex runs a subset, for development; a
-subset run never prints the final ok line).
+(--only kernels,corpus,zscore,duplex,single runs a subset, for development;
+a subset run never prints the final ok line).
 
 Phases (each prints its own lines; the run exits 0 only if all pass):
   1. device   the card's name, and name + power limit from nvidia-smi;
@@ -27,7 +27,11 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               each of its variants (1, 2, 4, 8 lanes a column group and 2 or
               4 columns a group with the rings in shared memory; 1 or 2
               lanes of 2 columns with them in device memory) at the corpus
-              shape, with
+              shape; and at B=1 with -c masks in the factors, as the
+              single-pair path gives them (K1-K3 on CopA and on CopT with
+              their constraint strings and on CopA banned whole, K4/K5 and K3
+              on CopA x CopT with the strings and with CopA banned whole;
+              K6 at B=1, 96x96), with
               CUDA-event times of both and each kernel's bound on the card;
               K1-K6 take the lengths; whole tables are compared, padding
               included; NaN or infinities in one version and not the other
@@ -38,19 +42,28 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
   5. zscore   CopA x CopT against 1000 seeded decoys at chunk 256 (per-stage
               times, decoy pipelines/s, z/zs sanity band; the first 256
               decoys' energies, z and zs against the golden's seeded
-              256-decoy run); then, outside the main path's count, the
-              golden's 64-decoy seeded run for parity;
+              256-decoy run, and the first 64 against its 64-decoy run);
   6. duplex   the pure-duplex model (--duplex, K6 in place of the cofold):
               the corpus against tests/data/torch_port_golden_duplex.json,
               then CopA x CopT against 1000 seeded decoys at chunk 256
-              (stage times, decoy pipelines/s; the first 256 decoys against
-              the golden's 256-decoy run); then, outside the main path's
-              count, the golden's 64-decoy seeded z-score for parity;
-  7. counts   each path's kernels launched, the other model's kernels not,
+              (stage times, decoy pipelines/s; the first 256 and the first
+              64 decoys against the golden's seeded 256- and 64-decoy runs);
+  7. single   the single-pair exact path (pipeline/ractip.py::predict, B=1
+              posteriors on the card, the MILP on the host), each run routed
+              by the CLI's cli.run_pair, on every case of
+              tests/data/torch_port_golden_single.json but the posterior
+              matrices: the corpus with -e, with -c, with
+              --force-constraint and with --duplex, the solver flags, --rip,
+              -P, the sequential -c z-score, and --acc-max --acc-max-ss on
+              strands cut to 32 and 64 bases; brackets identical,
+              objective within 1e-4, energies within 1e-6 kcal/mol, z and zs
+              within 1e-4, and the JAX package's exception and message
+              where it raises;
+  8. counts   each path's kernels launched, the other model's kernels not,
               and no plain version on a CUDA tensor.  The counts are set to
-              0 just before each main path (phases 4-5, phase 6 without
-              the parity runs) and read just after it; the kernels line
-              reports these.  Each parity run has a count of its own.
+              0 just before each path (phases 4-5, phase 6, phase 7) and read
+              just after it; the kernels line reports the default and duplex
+              paths' counts.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -85,6 +98,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 GOLDEN_DUPLEX = ROOT / "tests" / "data" / "torch_port_golden_duplex.json"
+GOLDEN_SINGLE = ROOT / "tests" / "data" / "torch_port_golden_single.json"
 
 FOLD_B, FOLD_L = 512, 96
 CO_B, CO_L1, CO_L2, CO_CUT = 256, 96, 96, 70
@@ -103,7 +117,9 @@ DUPLEX_B, DUPLEX_L = 256, 96
 Z_TPU, ZS_TPU, Z_BAND = -6.374, -2.845, 0.5
 # the first chunk of the 1000-decoy run against the JAX golden's seeded
 # 256-decoy run (one chunk): energies, and z / zs over those 256 decoys
-GOLD_DECOYS, TOL_DECOY_E, TOL_Z = 256, 1e-6, 1e-2
+GOLD_DECOYS, TOL_DECOY_E, TOL_Z = (256, 64), 1e-6, 1e-2
+# the single-pair path against the JAX package's single-pair golden
+TOL_OBJ, TOL_ENERGY, TOL_SINGLE_Z = 1e-4, 1e-6, 1e-4
 KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
     ("inside", "ractip_tpu_torch/csrc/inside.cu",
      "ractip_tpu/ops/scan_pallas.py:349", "default"),
@@ -120,7 +136,9 @@ KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
 ]
 # the kernels each path runs; the other kernels must not launch there
 PATHS = {"default": {"inside", "outside", "q2", "co_inside", "co_outside"},
-         "duplex": {"inside", "outside", "q2", "duplex_sweep"}}
+         "duplex": {"inside", "outside", "q2", "duplex_sweep"},
+         "single": {"inside", "outside", "q2", "co_inside", "co_outside",
+                    "duplex_sweep"}}
 PEAK_FLOPS = 67e12        # FP32 without tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
 MAXLOOP = 30
@@ -367,10 +385,11 @@ def _long_cofold_pairs():
 def phase_kernels(run: Run):
     import numpy as np
     import torch
-    from ractip_tpu_torch.evaluate.corpus import corpus_pairs
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs, record
     from ractip_tpu_torch.ops import _cuda
     from ractip_tpu_torch.ops import cofold as tc
     from ractip_tpu_torch.ops import scan as ts
+    from ractip_tpu_torch.ops.constraints import cofold_allow, fold_allow
     from ractip_tpu_torch.ops.factors import co_factors, fold_factors
     from ractip_tpu_torch.ops.seq import bucket_length, encode
     from ractip_tpu_torch.params.boltz import sig_tables
@@ -444,18 +463,22 @@ def phase_kernels(run: Run):
                    region_bytes=lambda o: 4 * L * sum(ns) + nbytes(
                        sig, n32, *o))[0]
 
-    def fold_case(seqs, L, tol_rel, tol_abs, des=0.0, label=None):
+    def fold_case(seqs, L, tol_rel, tol_abs, des=0.0, label=None,
+                  allow=None, mask=None):
+        """allow: a -c pair mask [B, L, L] (numpy), named mask."""
         S = torch.as_tensor(np.stack([encode(x, L) for x in seqs]),
                             device=dev).long()
         n = torch.tensor([len(x) for x in seqs], device=dev)
+        if allow is not None:
+            allow = torch.as_tensor(allow, device=dev)
         # the per-instance scale energies the pipeline's adaptive loop picks
-        es = ts.batch_fold(tt, S, n, dev)["es"] + des
+        es = ts.batch_fold(tt, S, n, dev, allow=allow)["es"] + des
         sig = torch.exp(-es / tt.scalar(tt.bt.kt))
-        ff = fold_factors(tt, S, n, sig)
+        ff = fold_factors(tt, S, n, sig, allow)
         F = ts.stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
         args = (F, w2k, bulge_k, sig, pows)
-        shape = [len(seqs), L] + ([label] if label else [])
+        shape = [len(seqs), L] + [x for x in (label, mask) if x]
         ns = n.tolist()
         cells = 4 * sum(m * m for m in ns)    # one float per cell of n x n
         # the bytes K1 and K2 must move: the factors (and K2's resident
@@ -541,18 +564,21 @@ def phase_kernels(run: Run):
 
     # ---- cofold: K4, K5 at the main path's shape, the cut at both edges,
     # the corpus shape and two long shapes (past the shared-memory sizes)
-    def cofold_case(pairs, L1, L2, tol_rel, tol_abs):
+    def cofold_case(pairs, L1, L2, tol_rel, tol_abs, allow=None, mask=None):
+        """allow: a -c pair mask [B, Lc, Lc] (numpy), named mask."""
         S1, S2, n1, n2 = _encode(pairs, L1, L2, dev)
         B = S1.shape[0]
         S = tc._pack_concat(S1, S2, n1)
         n, cut = n1 + n2, n1
-        es = tc.batch_cofold(tt, S1, S2, n1, n2, dev)["es"]
+        if allow is not None:
+            allow = torch.as_tensor(allow, device=dev)
+        es = tc.batch_cofold(tt, S1, S2, n1, n2, dev, allow=allow)["es"]
         sig = torch.exp(-es / tt.scalar(tt.bt.kt))
-        ff = co_factors(tt, S, n, cut, sig)
+        ff = co_factors(tt, S, n, cut, sig, allow)
         F = ts.stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
         args = (F, w2k, bulge_k, sig, pows, cut)
-        shape = [B, L1 + L2]
+        shape = [B, L1 + L2] + ([mask] if mask else [])
         ns = n.tolist()
         cells = 4 * sum(m * m for m in ns)    # one float per cell of n x n
         # the bytes K4 and K5 must move: the factors (and K5's resident
@@ -591,6 +617,22 @@ def phase_kernels(run: Run):
     for pairs, LL1, LL2 in _long_cofold_pairs():
         cofold_case(pairs, LL1, LL2, TOL_STATE_288, TOL_PROB_288)
 
+    # ---- the single-pair path's inputs: B = 1, -c masks in the factors
+    # (CopA x CopT with the golden's constraint strings, and CopA banned
+    # whole: every factor 0, the open chain alone)
+    a, b = record("CopA.fa").seq, record("CopT.fa").seq
+    c1, c2 = json.loads(GOLDEN_SINGLE.read_text())["constraints"]["CopA-CopT"]
+    La, Lb = bucket_length(len(a)), bucket_length(len(b))
+    for s, c, L in ((a, c1, La), (b, c2, Lb), (a, "x" * len(a), La)):
+        fold_case([s], L, TOL_STATE, TOL_PROB,
+                  allow=fold_allow(c, len(s), L)[None],
+                  mask="-c banned" if set(c) == {"x"} else "-c")
+    for cc1 in (c1, "x" * len(a)):
+        cofold_case([(a, b)], La, Lb, TOL_STATE, TOL_PROB,
+                    allow=cofold_allow(cc1, c2, len(a), len(b),
+                                       La + Lb)[None],
+                    mask="-c banned" if set(cc1) == {"x"} else "-c")
+
     # ---- duplex sweeps (K6): the main path, the corpus, a long target
     # (the launcher's picks), then every variant at the corpus shape
     duplex_case(run, res, tt, _shuffled_pairs(DUPLEX_B), DUPLEX_L, DUPLEX_L)
@@ -600,6 +642,8 @@ def phase_kernels(run: Run):
             ("".join(rng.choice(acgu, 64)), "".join(rng.choice(acgu, 2048)))]
     duplex_case(run, res, tt, long, 64, 2048)
     duplex_case(run, res, tt, corpus, L1, L2, _cuda.DUPLEX_VARIANTS)
+    # the single-pair path's --duplex: one pair a launch
+    duplex_case(run, res, tt, _shuffled_pairs(1), DUPLEX_L, DUPLEX_L)
     run.record["kernels"] = res
     torch.cuda.synchronize()
 
@@ -717,9 +761,9 @@ def _zstat(x0, xs) -> float:
     return (x0 - m) / np.sqrt(v) if v > 0 else float("inf")
 
 
-def _zscore_full(run: Run, timer_cls, model: str, band: bool, gold: dict):
-    """CopA x CopT against 1000 seeded decoys at chunk 256; the first 256
-    against the golden's seeded 256-decoy run (gold)."""
+def _zscore_full(run: Run, timer_cls, model: str, band: bool, golds):
+    """CopA x CopT against 1000 seeded decoys at chunk 256; its first n
+    decoys against the golden's seeded n-decoy run, for each of golds."""
     import numpy as np
     import torch
     from ractip_tpu_torch.evaluate.corpus import record
@@ -744,20 +788,24 @@ def _zscore_full(run: Run, timer_cls, model: str, band: bool, gold: dict):
         f"{1000 / wall:.2f} decoy pipelines/s")
     say(f"  stages (s): {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     say(f"  kernel launches in this z-score: {json.dumps(launches)}")
-    # the first 256 seeded decoys are those of a 256-decoy run (the seeded
+    # the first n seeded decoys are those of an n-decoy run (the seeded
     # shuffles of a longer run begin with those of a shorter one, and the
-    # first chunk holds them): held to the JAX golden's 256-decoy run
-    n = gold["num_shuffling"]
-    z256 = _zstat(st["e"], st["decoy_e"][:n])
-    zs256 = _zstat(st["es"], st["decoy_es"][:n])
-    same = int(np.sum(np.abs(np.asarray(st["decoy_e"][:n])
-                             - np.asarray(gold["decoy_e"])) < TOL_DECOY_E))
-    run.check(tag, same == n and abs(z256 - gold["z"]) <= TOL_Z
-              and abs(zs256 - gold["zs"]) <= TOL_Z,
-              f"first {n} decoys against the JAX golden's seeded {n}-decoy "
-              f"run: {same}/{n} decoy energies identical (within "
-              f"{TOL_DECOY_E:g}), z {z256:.4f} vs {gold['z']:.4f}, zs "
-              f"{zs256:.4f} vs {gold['zs']:.4f} (tol {TOL_Z:g})")
+    # first chunk holds them): held to the JAX golden's n-decoy run
+    parity = {}
+    for gold in golds:
+        n = gold["num_shuffling"]
+        zn = _zstat(st["e"], st["decoy_e"][:n])
+        zsn = _zstat(st["es"], st["decoy_es"][:n])
+        same = int(np.sum(np.abs(np.asarray(st["decoy_e"][:n])
+                                 - np.asarray(gold["decoy_e"])) < TOL_DECOY_E))
+        run.check(tag, same == n and abs(zn - gold["z"]) <= TOL_Z
+                  and abs(zsn - gold["zs"]) <= TOL_Z,
+                  f"first {n} decoys against the JAX golden's seeded "
+                  f"{n}-decoy run: {same}/{n} decoy energies identical "
+                  f"(within {TOL_DECOY_E:g}), z {zn:.4f} vs "
+                  f"{gold['z']:.4f}, zs {zsn:.4f} vs {gold['zs']:.4f} (tol "
+                  f"{TOL_Z:g})")
+        parity.update({f"z{n}": zn, f"zs{n}": zsn, f"same{n}": same})
     if band:
         run.check(tag, abs(z - Z_TPU) <= Z_BAND and abs(zs - ZS_TPU) <= Z_BAND,
                   f"z {z:.3f} within {Z_BAND} of {Z_TPU} and zs {zs:.3f} "
@@ -768,30 +816,7 @@ def _zscore_full(run: Run, timer_cls, model: str, band: bool, gold: dict):
     run.check(tag, float(np.max(st["violation"])) < 0.5,
               "all decoy structures feasible")
     return dict(z=z, zs=zs, e=st["e"], es=st["es"], wall=wall,
-                rate=1000 / wall, stages=stages, launches=launches,
-                z256=z256, zs256=zs256, same256=same)
-
-
-def _zscore_parity(run: Run, model: str, gz: dict):
-    """The golden's seeded z-score: z, zs within 1e-2, decoy energies."""
-    import numpy as np
-    from ractip_tpu_torch.evaluate.corpus import record
-    from ractip_tpu_torch.params.tables import get_default_params
-    from ractip_tpu_torch.pipeline.batched import zscore_batch
-    z, zs, st = zscore_batch(
-        record("CopA.fa"), record("CopT.fa"),
-        _options(model, zscore=12, num_shuffling=gz["num_shuffling"],
-                 seed=gz["seed"]), get_default_params(), chunk=256,
-        device="cuda")
-    same = int(np.sum(np.abs(np.asarray(st["decoy_e"])
-                             - np.asarray(gz["decoy_e"])) < 1e-6))
-    n = gz["num_shuffling"]
-    run.check(f"{model} zscore", abs(z - gz["z"]) <= 1e-2
-              and abs(zs - gz["zs"]) <= 1e-2 and same == n,
-              f"{n}-decoy seeded parity: z {z:.4f} vs golden {gz['z']:.4f},"
-              f" zs {zs:.4f} vs {gz['zs']:.4f}; {same}/{n} decoy energies "
-              "identical")
-    return dict(z64=z, zs64=zs, same64=same)
+                rate=1000 / wall, stages=stages, launches=launches, **parity)
 
 
 def phase_zscore(run: Run, timer_cls, model: str):
@@ -799,9 +824,10 @@ def phase_zscore(run: Run, timer_cls, model: str):
     nat = native.available()
     run.check(f"{model} zscore", nat, f"native uShuffle available: {nat}")
     # no TPU run of the duplex z-score exists: its parity is the golden's
+    golds = [golden_zscore(model, n) for n in GOLD_DECOYS]
+    assert all(g["seed"] == 1 for g in golds)
     run.record[f"{model} zscore"] = _zscore_full(
-        run, timer_cls, model, band=model == "default",
-        gold=golden_zscore(model, GOLD_DECOYS))
+        run, timer_cls, model, band=model == "default", golds=golds)
 
 
 def golden_zscore(model: str, decoys: int) -> dict:
@@ -814,9 +840,67 @@ def golden_zscore(model: str, decoys: int) -> dict:
     return gold["zscore" if decoys == 64 else f"zscore_{decoys}"]
 
 
-def phase_parity(run: Run, model: str):
-    rec = _zscore_parity(run, model, golden_zscore(model, 64))
-    run.record.setdefault(f"{model} zscore", {}).update(rec)
+def _single_case(e: dict):
+    """One golden entry through the port's CLI routing (cli.run_pair) on
+    the card: (r1, r2, objective, energies or None, zscore or None)."""
+    from ractip_tpu_torch import cli
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs
+    from ractip_tpu_torch.io.fasta import Fasta
+    fa1, fa2 = next((a, b) for name, a, b in corpus_pairs()
+                    if name == e["pair"])
+    cut, cstr = e.get("cut"), e["cstr"] or ("", "")
+    fa1 = Fasta(fa1.name, fa1.seq[:cut], cstr[0])
+    fa2 = Fasta(fa2.name, fa2.seq[:cut], cstr[1])
+    flags = [str(ROOT / f) if f in (e["par"], e["rip"]) else f
+             for f in e["flags"]]
+    args = cli.build_parser().parse_args(["a", "b"] + flags)
+    r1, r2, obj, ee, z = cli.run_pair(args, fa1, fa2)
+    en = None if ee is None else [ee[k] for k in
+                                  ("e1", "e2", "e3", "e1s", "e2s")]
+    return r1, r2, obj, en, z
+
+
+def phase_single(run: Run):
+    """The single-pair exact path on the golden's cases a-h and j."""
+    import numpy as np
+    gold = json.loads(GOLDEN_SINGLE.read_text())["cases"]
+    secs, rows = {}, []
+    for case in "abcdefghj":
+        t0 = time.perf_counter()
+        for e in gold[case]:
+            tag = f"{case} {e['pair']} {' '.join(e['flags'])}"
+            try:
+                got, err = _single_case(e), None
+            except Exception as ex:   # held to the JAX package's exception
+                got, err = None, [type(ex).__name__, str(ex)]
+            if e.get("error") or err:
+                want = e.get("error") and [e["error"], e["message"]]
+                run.check("single", err == want,
+                          f"{tag}: raises {err} (JAX package: {want})")
+                rows.append(dict(case=case, pair=e["pair"], error=err))
+                continue
+            r1, r2, obj, en, zs = got
+            same = (r1, r2) == (e["r1"], e["r2"])
+            dobj = abs(obj - e["objective"])
+            de = (0.0 if e["energies"] is None else
+                  float(np.max(np.abs(np.subtract(en, e["energies"])))))
+            dz = (0.0 if "zscore" not in e else
+                  float(np.max(np.abs(np.subtract(zs, e["zscore"])))))
+            run.check("single", same and dobj <= TOL_OBJ
+                      and de <= TOL_ENERGY and dz <= TOL_SINGLE_Z,
+                      f"{tag}: brackets {'identical' if same else 'DIFFER'}"
+                      f", objective |d| {dobj:.2e} (tol {TOL_OBJ:g}), "
+                      f"energies max |d| {de:.2e} (tol {TOL_ENERGY:g})"
+                      + (f", z/zs max |d| {dz:.2e} (tol {TOL_SINGLE_Z:g})"
+                         if "zscore" in e else ""))
+            if not same:
+                say(f"    port   {r1} / {r2}\n    golden {e['r1']} / "
+                    f"{e['r2']}")
+            rows.append(dict(case=case, pair=e["pair"], same=same,
+                             dobj=dobj, de=de, dz=dz))
+        secs[case] = time.perf_counter() - t0
+        say(f"  case {case}: {len(gold[case])} runs, {secs[case]:.2f} s")
+    run.record["single"] = dict(seconds=secs, cases=rows)
 
 
 def count_path(run: Run, window: str, path: str, launches: dict,
@@ -835,7 +919,7 @@ def count_path(run: Run, window: str, path: str, launches: dict,
 
 def main() -> int:
     import argparse
-    phases = {"kernels", "corpus", "zscore", "duplex"}
+    phases = {"kernels", "corpus", "zscore", "duplex", "single"}
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--only", default=",".join(sorted(phases)),
                     help="comma list of phases after the build: "
@@ -856,7 +940,7 @@ def main() -> int:
         bail(f"the port is not next to this script ({e})")
     if Path(ractip_tpu_torch.__file__).resolve().parent.parent != ROOT:
         bail("ractip_tpu_torch was not imported from this checkout")
-    for g in (GOLDEN, GOLDEN_DUPLEX):
+    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE):
         if not g.exists():
             bail(f"missing {g.relative_to(ROOT)}")
     from ractip_tpu_torch.ops import _cuda
@@ -894,12 +978,10 @@ def main() -> int:
                              StageTimer, model))
             if main:
                 counted(model, model, main)
-            if zscore:
-                counted(f"{model} parity", model,
-                        [(f"{pz} {model} zscore parity", phase_parity,
-                          model)])
+        if "single" in only:
+            counted("single", "single", [("7 single pair", phase_single)])
         if counts:
-            say("== 7 launch counts")
+            say("== 8 launch counts")
             for window, (path, launches, plain) in counts.items():
                 count_path(run, window, path, launches, plain)
         run.record["launches"] = {k: v[1] for k, v in counts.items()}

@@ -13,14 +13,13 @@ batch_cofold returns the cross-cut hybridization posteriors hp [B, L1, L2]
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import _cuda
 from .factors import co_factors
 from .scan import (SCALE_E0, _on_cpu, adaptive, as_tables, inside_plain,
-                   lengths, outside_plain, pair_probs, q2, saturated,
-                   stack_cols)
+                   lengths, on_device, outside_plain, pair_probs, q2,
+                   saturated, stack_cols)
 from ..params.boltz import TorchTables, sig_tables
 from ..utils.timing import stage
 
@@ -66,13 +65,14 @@ def _pack_concat(S1, S2, n1):
     return torch.where(idx < n1[:, None], s1, s2)
 
 
-def _co_inside_once(tt: TorchTables, S, n, cut, es, timer=None):
-    """One batched cofold inside pass at scale energies es [B]."""
+def _co_inside_once(tt: TorchTables, S, n, cut, es, timer=None, allow=None):
+    """One batched cofold inside pass at scale energies es [B] (allow: the
+    optional bool [B, Lc, Lc] pair mask in concatenation coordinates)."""
     B, L = S.shape
     dt = tt.dtype
     sig = torch.exp(-es.to(dt) / tt.scalar(tt.bt.kt))
     with stage(timer, "factors"):
-        ff = co_factors(tt, S, n, cut, sig)
+        ff = co_factors(tt, S, n, cut, sig, allow)
         F = stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
     qm1_c, qb_c, qm_c, qx_c, q1 = co_inside(F, w2k, bulge_k, sig, pows, cut,
@@ -122,18 +122,19 @@ def cross_block(bpp, n1, n2, L1: int, L2: int):
 
 def batch_cofold(tables, S1, S2, n1, n2, device, max_iter: int = 8,
                  es0: float = SCALE_E0, dtype=torch.float32,
-                 timer=None) -> dict:
+                 timer=None, allow=None) -> dict:
     """Batched joint fold of the concatenations s1[:n1] ++ s2.
 
+    allow (optional bool [B, Lc, Lc], Lc = L1 + L2, numpy or torch) is the
+    -c pair mask over the concatenation, strand-2 base j at n1 + j
+    (ops/constraints.py::cofold_allow), applied in every rescale round.
     Returns a dict with ins (natural-layout inside tables over the
     concatenation), ob, bpp [B, L, L], hp [B, L1, L2] (hp[i1, i2] =
     bpp[i1, n1 + i2], masked to the real lengths), sig and es."""
     from ..device import resolve
     dev = resolve(device)
     tt = as_tables(tables, dev, dtype)
-    t = lambda a: torch.as_tensor(
-        np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(
-            torch.long)
+    t = lambda a: on_device(a, dev, torch.long)
     S1, S2 = t(S1), t(S2)
     n1, n2 = t(n1).clamp(min=1), t(n2).clamp(min=1)
     B, L1 = S1.shape
@@ -141,9 +142,11 @@ def batch_cofold(tables, S1, S2, n1, n2, device, max_iter: int = 8,
     S = _pack_concat(S1, S2, n1)
     n = n1 + n2
     cut = n1
+    if allow is not None:
+        allow = on_device(allow, dev, torch.bool)
 
     es, ins, aux, sig = adaptive(
-        lambda es: _co_inside_once(tt, S, n, cut, es, timer), es0, n,
+        lambda es: _co_inside_once(tt, S, n, cut, es, timer, allow), es0, n,
         tt.bt.kt, max_iter, tt.dtype)
     q1pad = torch.cat([torch.ones(B, 1, dtype=tt.dtype, device=dev),
                        ins["q1"][:, :-1]], 1).contiguous()

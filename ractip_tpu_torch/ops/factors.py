@@ -57,9 +57,13 @@ class CoFactors(NamedTuple):
 
 
 class _Ctx:
-    """Shared gathers of one batch of encoded sequences S [B, L]."""
+    """Shared gathers of one batch of encoded sequences S [B, L].  allow
+    (optional bool [B, L, L]) narrows the pairable mask tv once, so every
+    factor gated by tv sees it (mccaskill.py:147-148, cofold.py:114-115);
+    taur and minn stay on the reversed pair's type, as there."""
 
-    def __init__(self, tt: TorchTables, S: torch.Tensor, sig: torch.Tensor):
+    def __init__(self, tt: TorchTables, S: torch.Tensor, sig: torch.Tensor,
+                 allow: torch.Tensor | None = None):
         self.tt = tt
         self.S = S = S.to(device=tt.device, dtype=torch.long)
         B, L = S.shape
@@ -72,6 +76,8 @@ class _Ctx:
         self.t = P[S[:, :, None], S[:, None, :]]
         self.rt = tt.rtype[self.t]
         self.tv = self.t > 0
+        if allow is not None:
+            self.tv = self.tv & allow.to(device=tt.device, dtype=torch.bool)
         self.sig = sig.to(tt.dtype)[:, None, None]
         self.si1, self.sj1 = self.row(1), self.col(-1)
         self.si2, self.sj2 = self.row(2), self.col(-2)
@@ -152,9 +158,10 @@ class _Ctx:
 
 
 def fold_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
-                 sig: torch.Tensor) -> FoldFactors:
-    """FoldFactors of a batch: S [B, L] codes, n [B] lengths, sig [B]."""
-    c = _Ctx(tt, S, sig)
+                 sig: torch.Tensor, allow=None) -> FoldFactors:
+    """FoldFactors of a batch: S [B, L] codes, n [B] lengths, sig [B],
+    allow (optional bool [B, L, L]) the -c pair mask."""
+    c = _Ctx(tt, S, sig, allow)
     n = n.to(tt.device)[:, None, None]
     one, z = tt.scalar(1.0), tt.scalar(0.0)
     t, d5, d3 = c.t, tt.dangle5, tt.dangle3
@@ -166,12 +173,14 @@ def fold_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
 
 
 def co_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
-               cut: torch.Tensor, sig: torch.Tensor) -> CoFactors:
+               cut: torch.Tensor, sig: torch.Tensor, allow=None) -> CoFactors:
     """Cut-aware CoFactors of concatenations S = s1[:n1] ++ s2, cut = n1.
 
     A loop stretch i..k (junctions included) must not cross the cut unless
-    hidden inside a nested pair: forbidden iff i < cut <= k."""
-    c = _Ctx(tt, S, sig)
+    hidden inside a nested pair: forbidden iff i < cut <= k.  allow
+    (optional bool [B, Lc, Lc]) is the -c mask in concatenation
+    coordinates (strand-2 base j at n1 + j)."""
+    c = _Ctx(tt, S, sig, allow)
     n = n.to(tt.device)[:, None, None]
     ct = cut.to(tt.device)[:, None, None]
     I, J, tv = c.I, c.J, c.tv

@@ -341,6 +341,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def on_device(a, dev, dtype) -> torch.Tensor:
+    """a (numpy, a sequence or a tensor) as a tensor of dtype on dev."""
+    return torch.as_tensor(a if torch.is_tensor(a) else np.asarray(a),
+                           device=dev).to(dtype)
+
+
 def lengths(n):
     """The kernels' lengths argument: n [B] as contiguous int32 (or None)."""
     return None if n is None else n.to(torch.int32).contiguous()
@@ -406,8 +412,9 @@ def saturated(zn, *tables):
     return sat
 
 
-def batch_inside(tt: TorchTables, S, n, es, timer=None):
-    """One batched inside pass at per-instance scale energies es [B].
+def batch_inside(tt: TorchTables, S, n, es, timer=None, allow=None):
+    """One batched inside pass at per-instance scale energies es [B]
+    (allow: the optional bool [B, L, L] pair mask of -c).
 
     Returns (ins dict of natural [B, ...] tensors: qb, qm, qm1, qm2, q1, q2,
     zn, sat; aux dict with the kernel-layout tensors the outside pass
@@ -416,7 +423,7 @@ def batch_inside(tt: TorchTables, S, n, es, timer=None):
     dt = tt.dtype
     sig = torch.exp(-es.to(dt) / tt.scalar(tt.bt.kt))
     with stage(timer, "factors"):
-        ff = fold_factors(tt, S, n, sig)
+        ff = fold_factors(tt, S, n, sig, allow)
         F = stack_cols(ff)
         w2k, bulge_k, pows = sig_tables(tt, sig)
     qm1_c, qb_c, qm_c, qm2_c, q1 = inside(F, w2k, bulge_k, sig, pows, n)
@@ -460,24 +467,26 @@ def pair_probs(qb, ob, zn):
 
 def batch_fold(tables, S, n, device, max_iter: int = 8,
                es0: float = SCALE_E0, dtype=torch.float32,
-               timer=None) -> dict:
+               timer=None, allow=None) -> dict:
     """Batched inside+outside with per-instance adaptive pf scaling.
 
-    S [B, L] codes, n [B] lengths (numpy or torch).  Returns a dict with
+    S [B, L] codes, n [B] lengths (numpy or torch), allow (optional bool
+    [B, L, L], numpy or torch) the -c pair mask, applied to the factors of
+    every rescale round.  Returns a dict with
     ins (natural-layout inside tables), ff (FoldFactors), ob, bpp [B, L, L],
     sig [B], es [B]."""
     from ..device import resolve
     dev = resolve(device)
     tt = as_tables(tables, dev, dtype)
-    S = torch.as_tensor(np.asarray(S) if not torch.is_tensor(S) else S,
-                        device=dev).to(torch.long)
-    n = torch.as_tensor(np.asarray(n) if not torch.is_tensor(n) else n,
-                        device=dev).to(torch.long).clamp(min=1)
+    S = on_device(S, dev, torch.long)
+    n = on_device(n, dev, torch.long).clamp(min=1)
     B, L = S.shape
+    if allow is not None:
+        allow = on_device(allow, dev, torch.bool)
 
     es, ins, aux, sig = adaptive(
-        lambda es: batch_inside(tt, S, n, es, timer), es0, n, tt.bt.kt,
-        max_iter, tt.dtype)
+        lambda es: batch_inside(tt, S, n, es, timer, allow), es0, n,
+        tt.bt.kt, max_iter, tt.dtype)
     q1pad = torch.cat([torch.ones(B, 1, dtype=tt.dtype, device=dev),
                        ins["q1"][:, :-1]], 1).contiguous()
     ob_c = outside(aux["F"], ins["qm"].contiguous(), aux["qm1_c"], q1pad,

@@ -125,14 +125,17 @@ def make_boltz(p: EnergyParams) -> BoltzTables:
     )
 
 
-_CACHE: dict[int, BoltzTables] = {}
+_CACHE: dict[int, tuple[EnergyParams, BoltzTables]] = {}
 
 
 def get_boltz(p: EnergyParams) -> BoltzTables:
-    key = id(p)
-    if key not in _CACHE:
-        _CACHE[key] = make_boltz(p)
-    return _CACHE[key]
+    """The tables of p, cached by identity.  The entry holds p itself, so
+    its id cannot pass to another parameter set (say one read by -P) while
+    the entry lives."""
+    hit = _CACHE.get(id(p))
+    if hit is None or hit[0] is not p:
+        hit = _CACHE[id(p)] = (p, make_boltz(p))
+    return hit[1]
 
 
 @dataclasses.dataclass(frozen=True)

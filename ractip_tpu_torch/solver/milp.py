@@ -1,11 +1,13 @@
-"""Exact host certify step over the candidate-space joint program (HiGHS).
+"""Exact host solves over the candidate-space joint program (HiGHS).
 
 A numpy/scipy copy of ractip_tpu/solver/milp.py (_np_problem, build_milp,
-_solve_built, certify_or_solve, _backend; milp.py:29-335), taking the port's
-JointProblem of one instance with numpy leaves.  It is a copy only because
-the JAX module cannot be imported without jax (ractip_tpu/solver/__init__.py
-imports the jax solvers).  The native branch-and-bound (solver/bnb.py) is not
-part of the port: _backend selects HiGHS, which scipy provides.
+_solve_built, solve_joint_milp, certify_or_solve, _backend, exact_solve;
+milp.py:29-336), taking the port's JointProblem of one instance with numpy
+leaves: the batched path's certify step, and the single-pair exact path's
+MILP (pipeline/ractip.py).  It is a copy only because the JAX module cannot
+be imported without jax (ractip_tpu/solver/__init__.py imports the jax
+solvers).  The native branch-and-bound (solver/bnb.py) is not part of the
+port: HiGHS, which scipy provides, is the only backend.
 """
 
 from __future__ import annotations
@@ -259,6 +261,13 @@ def _solve_built(c, A, b, lb, ub, sizes):
     return tuple(out), obj, obj, nodes
 
 
+def solve_joint_milp(p: JointProblem, cfg: SolverConfig, L1: int, L2: int):
+    """Exact solve via SciPy/HiGHS branch-and-cut: (u, objective, bound,
+    nodes), u a tuple of 5 binary float arrays over candidate slots, bound
+    == objective (the reference's glp_intopt, src/ip.cpp:112-122)."""
+    return _solve_built(*build_milp(p, cfg, L1, L2), p.sizes)
+
+
 def certify_or_solve(p: JointProblem, cfg: SolverConfig, L1: int, L2: int,
                      dev_obj: float, gap_tol: float):
     """Certify a device solution against the EXACT LP bound, or solve.
@@ -289,7 +298,14 @@ def _backend() -> str:
     try:
         import scipy.optimize  # noqa: F401
     except ImportError as e:   # pragma: no cover - scipy is a dependency
-        raise RuntimeError("the certify step needs scipy (HiGHS); the "
+        raise RuntimeError("the exact host solves need scipy (HiGHS); the "
                            "native branch-and-bound is not ported "
                            "(ROADMAP queue 1)") from e
     return "milp"
+
+
+def exact_solve(p: JointProblem, cfg: SolverConfig, L1: int, L2: int):
+    """Exact host solve of one pair (the L3 facade role, reference
+    src/ip.h:25-44): the HiGHS MILP; raises where scipy is missing."""
+    _backend()
+    return solve_joint_milp(p, cfg, L1, L2)

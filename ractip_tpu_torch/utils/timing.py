@@ -9,6 +9,7 @@ seconds include the device work it queued.
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 
 import torch
@@ -44,6 +45,9 @@ class StageTimer:
 
     def report(self) -> dict[str, float]:
         return dict(self.seconds)
+
+    def json(self) -> str:
+        return json.dumps({k: round(v, 6) for k, v in self.seconds.items()})
 
 
 def stage(timer, name: str):

@@ -1,24 +1,29 @@
-"""Port CLI (ractip_tpu_torch.cli): the slices' flags run, the others refuse.
+"""Port CLI (ractip_tpu_torch.cli): the ported flags run, the others refuse.
 
-A single pair runs through predict_batch at B=1 on the CPU and must give
-the JAX package's brackets recorded in the golden files (Tar-Tarstar; the
-default model in tests/data/torch_port_golden.json, --duplex in
-tests/data/torch_port_golden_duplex.json).  Every reference flag outside
-the slices exits non-zero naming its ROADMAP item."""
+A single pair runs through the single-pair exact path (pipeline/ractip.py)
+on the CPU and must give the JAX package's brackets recorded in the golden
+files (Tar-Tarstar; the default model in tests/data/torch_port_golden.json,
+--duplex in tests/data/torch_port_golden_duplex.json).  -c (constraint
+strings in the FASTA files), -r, -P and --acc-max run through cli.main and
+must give the brackets and energies of the JAX package's single-pair path
+recorded in tests/data/torch_port_golden_single.json
+(tools/make_torch_single_golden.py).  The reference flags the port does not
+carry yet exit non-zero naming their ROADMAP item."""
 
-import functools
 import json
 import os
+import re
 
 import pytest
 import torch
 
 from ractip_tpu_torch import cli
-from ractip_tpu_torch.evaluate.corpus import data_dir_default
+from ractip_tpu_torch.evaluate.corpus import data_dir_default, record
 
 torch.set_num_threads(2)
 
-DATA = os.path.join(os.path.dirname(__file__), "data")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "tests", "data")
 TAR = [os.path.join(data_dir_default(), f) for f in ("Tar.fa", "Tarstar.fa")]
 
 
@@ -36,11 +41,7 @@ def test_single_pair_matches_golden(capsys):
     assert out[6].startswith("(E: JS= ")
 
 
-def test_duplex_single_pair_matches_golden(capsys, monkeypatch):
-    # 200 PDHG iterations in place of 3000: the certify step proves the
-    # structure optimal either way, and the test runs in a fifth of the time
-    monkeypatch.setattr(cli, "predict_batch",
-                        functools.partial(cli.predict_batch, iters=200))
+def test_duplex_single_pair_matches_golden(capsys):
     assert cli.main(TAR + ["--duplex", "--device", "cpu", "-e"]) == 0
     out = capsys.readouterr().out.splitlines()
     gold = _tar_golden("torch_port_golden_duplex.json")
@@ -48,9 +49,48 @@ def test_duplex_single_pair_matches_golden(capsys, monkeypatch):
     assert out[6].startswith("(E: JS= ")
 
 
+def _single(case, flags):
+    with open(os.path.join(DATA, "torch_port_golden_single.json")) as fh:
+        return next(e for e in json.load(fh)["cases"][case]
+                    if e["pair"] == "Tar-Tarstar" and e["flags"] == flags)
+
+
+@pytest.mark.parametrize("case,flags", [
+    ("b", ["-e", "-c"]),
+    ("f", ["-r", os.path.join("tests", "data", "rip_Tar-Tarstar.txt")]),
+    ("g", ["-e", "-P", os.path.join("tests", "data", "single.par")]),
+    ("e", ["-e", "--acc-max", "-b", "0.1"])])
+def test_ported_flags_match_golden(case, flags, tmp_path, capsys,
+                                   monkeypatch):
+    """Each flag through cli.main against the JAX single-pair golden: the
+    brackets, and with -e the energy line's numbers within 1e-6 kcal/mol of
+    the golden's energies (beyond the 6 digits %g prints)."""
+    gold = _single(case, flags)
+    fastas = TAR
+    if gold["cstr"]:
+        fastas = []
+        for fa, cstr in zip(map(record, ("Tar.fa", "Tarstar.fa")),
+                            gold["cstr"]):
+            path = tmp_path / f"{len(fastas)}.fa"
+            path.write_text(f">{fa.name}\n{fa.seq}\n{cstr}\n")
+            fastas.append(str(path))
+    monkeypatch.chdir(ROOT)
+    assert cli.main(fastas + flags + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[2] == gold["r1"] and out[5] == gold["r2"]
+    if "-e" in flags:
+        e1, e2, e3, e1s, e2s = gold["energies"]
+        want = [e1 + e2 + e3, e1, e2, e3, e1s + e2s, e1s, e2s]
+        line = out[6].replace("JS=", "").replace("S1+S2=", "")
+        got = [float(x) for x in re.findall(r"[-+]?\d+(?:\.\d+)?"
+                                            r"(?:e[-+]?\d+)?", line)]
+        assert out[6].startswith("(E: JS= ") and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert abs(g - w) <= 1e-6 + 5e-6 * abs(w), (out[6], want)
+
+
 @pytest.mark.parametrize("flag", [
-    ["-c"], ["--contrafold"], ["-r", "x.rip"],
-    ["-P", "x.par"], ["--acc-max"], ["--mesh"], ["--ckpt-dir", "d"]])
+    ["--contrafold"], ["--contraduplex"], ["--mesh"], ["--ckpt-dir", "d"]])
 def test_flags_outside_the_slice_refuse(flag, capsys):
     assert cli.main(TAR + flag + ["--device", "cpu"]) != 0
     err = capsys.readouterr().err

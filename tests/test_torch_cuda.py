@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels (K1-K6) against their plain PyTorch versions.
 
-These need a CUDA GPU and nvcc; without them each test skips (decided in
-the fixture, so every worker collects the same tests).  Run on the GPU
+These need a CUDA GPU and nvcc; without a GPU the whole module skips at
+collection (every worker sees the same: no CUDA).  Run on the GPU
 with:  python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 (--noconftest skips tests/conftest.py, which imports jax; this file does not.)
 Tolerances: inside states and ob rtol 1e-4 (f32 summation order; 1e-3 at
@@ -16,6 +16,7 @@ import torch
 
 from ractip_tpu_torch.ops import _cuda
 from ractip_tpu_torch.ops import cofold as tc
+from ractip_tpu_torch.ops import constraints as tcn
 from ractip_tpu_torch.ops import duplex as td
 from ractip_tpu_torch.ops import scan as ts
 from ractip_tpu_torch.ops.factors import co_factors, fold_factors
@@ -24,12 +25,13 @@ from ractip_tpu_torch.params.boltz import sig_tables
 from ractip_tpu_torch.params.tables import get_default_params
 
 pytestmark = pytest.mark.gpu
+if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)",
+                allow_module_level=True)
 
 
 @pytest.fixture(scope="module")
 def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     _cuda.lib()
     return torch.device("cuda")
 
@@ -55,7 +57,9 @@ def test_fold_kernels_match_plain(dev):
     device memory; K1 at two and four threads a row) and L = 1024 (rings and
     qm in device memory); K3 also on full random qbe with n < L (lower
     triangle and padding nonzero; small, saturating at the clamp, and at
-    L = 2048, where K3 reads the rows from device memory).
+    L = 2048, where K3 reads the rows from device memory); then K1, K3 and
+    K2 at B = 1 with -c masks in the factors (a partial mask, and every
+    pair banned: all-zero factors).
     Whole tables, padding included: the same non-finite cells, values
     within the tolerance, a relaunch bit-identical."""
     tt = ts.as_tables(get_default_params(), dev)
@@ -99,6 +103,11 @@ def test_fold_kernels_match_plain(dev):
             _fold_length_aware(dev, tt, rng, L,
                                rng.integers(L - 40, L + 1, B).tolist(), 0.0,
                                rtol)
+    for cstr, L in (("((((....))))..xx<..>..((((((......))))))|.x" * 2, 96),
+                    ("x" * 50, 64)):
+        n = len(cstr) - 8 * (L == 96)
+        _fold_length_aware(dev, tt, rng, L, [n], 0.0, 1e-4,
+                           tcn.fold_allow(cstr, n, L)[None])
 
 
 def _same(k, k2, p, rtol):
@@ -111,13 +120,15 @@ def _same(k, k2, p, rtol):
         _close(a[fin], b[fin], rtol)
 
 
-def _fold_length_aware(dev, tt, rng, L, ns, des, rtol):
+def _fold_length_aware(dev, tt, rng, L, ns, des, rtol, allow=None):
     S = torch.as_tensor(np.stack([encode("".join(rng.choice(list("ACGU"), m)),
                                          L) for m in ns]), device=dev).long()
     n = torch.tensor(ns, device=dev)
     sig = torch.exp(-torch.full((len(ns),), ts.SCALE_E0 + des, device=dev)
                     / tt.scalar(tt.bt.kt))
-    ff = fold_factors(tt, S, n, sig)
+    if allow is not None:
+        allow = torch.as_tensor(allow, device=dev)
+    ff = fold_factors(tt, S, n, sig, allow)
     F = ts.stack_cols(ff)
     w2k, bulge_k, pows = sig_tables(tt, sig)
     args = (F, w2k, bulge_k, sig, pows)
@@ -169,14 +180,20 @@ def test_cofold_kernels_match_plain(dev):
 
 def test_cofold_kernels_length_aware_match_plain(dev):
     """K4 and K5 given the lengths: n < L, the cut at both edges (cut = 1,
-    cut = n - 1), and at Lc = 1024 (column rings in device memory).  Whole
-    tables, padding included: the same non-finite cells, values within the
+    cut = n - 1), at Lc = 1024 (column rings in device memory), and at
+    B = 1 with -c masks in the concatenation's factors (strand-2 base j at
+    n1 + j; a partial mask, and strand 1 banned whole).  Whole tables,
+    padding included: the same non-finite cells, values within the
     tolerance, a relaunch bit-identical."""
     _length_aware_case(dev, 24, [1, 20, 24, 13, 1], [17, 1, 24, 9, 1], 1e-4)
     _length_aware_case(dev, 512, [480], [500], 1e-3)
+    s1 = ".[[[[[[...((((....))))x..." * 3
+    s2 = "..(((...)))..]]]]]]..<..>..|" * 2
+    for c1 in (s1[:70], "x" * 70):
+        _length_aware_case(dev, 96, [70], [56], 1e-4, (c1, s2))
 
 
-def _length_aware_case(dev, L1, N1, N2, rtol):
+def _length_aware_case(dev, L1, N1, N2, rtol, cstr=None):
     L2 = L1
     rng = np.random.default_rng(8)
     rs = lambda k: "".join(rng.choice(list("ACGU"), k))
@@ -189,7 +206,9 @@ def _length_aware_case(dev, L1, N1, N2, rtol):
     n, cut = n1 + n2, n1
     sig = torch.exp(-torch.full((len(N1),), ts.SCALE_E0, device=dev)
                     / tt.scalar(tt.bt.kt))
-    ff = co_factors(tt, S, n, cut, sig)
+    allow = None if cstr is None else torch.as_tensor(tcn.cofold_allow(
+        cstr[0], cstr[1], N1[0], N2[0], L1 + L2)[None], device=dev)
+    ff = co_factors(tt, S, n, cut, sig, allow)
     F = ts.stack_cols(ff)
     w2k, bulge_k, pows = sig_tables(tt, sig)
     args = (F, w2k, bulge_k, sig, pows, cut)

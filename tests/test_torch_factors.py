@@ -3,7 +3,8 @@
 The same seeded batch goes through the port's gather form and the JAX
 package's bilinear form (ops/factors_mm.py), which is exact against its
 own gather form; every field must agree to rtol 1e-6 (f32 rounding of the
-sigma powers and table products)."""
+sigma powers and table products), without and with a -c pair mask
+(`allow`, seeded random, a whole banned row and column included)."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,24 @@ def _batch(seed, L=L, B=B, nmin=12):
     return S, ns, sig
 
 
+def _allow(seed, S):
+    """Seeded random symmetric pair masks [B, L, L], one base banned whole."""
+    rng = np.random.default_rng(seed)
+    B, L = S.shape
+    a = rng.random((B, L, L)) < 0.7
+    a = a & a.transpose(0, 2, 1)
+    a[:, 3, :] = a[:, :, 3] = False
+    return a
+
+
+def _check(got, ref):
+    assert got._fields == ref._fields
+    for f in got._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(ref, f)), rtol=1e-6,
+                                   atol=0, err_msg=f)
+
+
 @pytest.fixture(scope="module")
 def bt():
     return get_boltz(get_default_params())
@@ -46,11 +65,14 @@ def test_fold_factors_match_factors_mm(bt):
     tt = tables_to_torch(bt, "cpu", torch.float32)
     got = fold_factors(tt, torch.from_numpy(S), torch.from_numpy(n),
                        torch.from_numpy(sig))
-    assert got._fields == ref._fields
-    for f in got._fields:
-        np.testing.assert_allclose(getattr(got, f).numpy(),
-                                   np.asarray(getattr(ref, f)), rtol=1e-6,
-                                   atol=0, err_msg=f)
+    _check(got, ref)
+    al = _allow(10, S)
+    ref = jax.vmap(lambda s, m, sg, a: fold_factors_mm(bt, s, m, sg, a))(
+        jnp.asarray(S), jnp.asarray(n), jnp.asarray(sig, jnp.float32),
+        jnp.asarray(al))
+    got = fold_factors(tt, torch.from_numpy(S), torch.from_numpy(n),
+                       torch.from_numpy(sig), torch.from_numpy(al))
+    _check(got, ref)
 
 
 @pytest.mark.parametrize("seed", [1, 2])
@@ -63,8 +85,12 @@ def test_co_factors_match_co_factors_mm(bt, seed):
     tt = tables_to_torch(bt, "cpu", torch.float32)
     got = co_factors(tt, torch.from_numpy(S), torch.from_numpy(n),
                      torch.from_numpy(cut), torch.from_numpy(sig))
-    assert got._fields == ref._fields
-    for f in got._fields:
-        np.testing.assert_allclose(getattr(got, f).numpy(),
-                                   np.asarray(getattr(ref, f)), rtol=1e-6,
-                                   atol=0, err_msg=f)
+    _check(got, ref)
+    al = _allow(10 + seed, S)
+    ref = jax.vmap(lambda s, m, c, sg, a: co_factors_mm(bt, s, m, c, sg, a))(
+        jnp.asarray(S), jnp.asarray(n), jnp.asarray(cut),
+        jnp.asarray(sig, jnp.float32), jnp.asarray(al))
+    got = co_factors(tt, torch.from_numpy(S), torch.from_numpy(n),
+                     torch.from_numpy(cut), torch.from_numpy(sig),
+                     torch.from_numpy(al))
+    _check(got, ref)

@@ -145,11 +145,22 @@ def test_port_never_imports_jax():
         from ractip_tpu_torch.pipeline.batched import predict_batch
         from ractip_tpu_torch.pipeline.options import Options
         import ractip_tpu_torch.cli  # noqa: F401
+        import ractip_tpu_torch.io.rip  # noqa: F401
+        import ractip_tpu_torch.params.vienna_par  # noqa: F401
+        import ractip_tpu_torch.utils.records  # noqa: F401
+        from ractip_tpu_torch.io.fasta import Fasta
+        from ractip_tpu_torch.pipeline.ractip import predict
         pair = [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")]
         for opts in (Options(), Options(use_pf_duplex=True)):
             r = predict_batch(get_default_params(), pair, opts, iters=100,
                               buckets=(32, 32, 32, 64, 64), device="cpu")
             assert len(r.r1) == 1
+            p = predict(Fasta("a", pair[0][0], "((((....))))[[[["),
+                        Fasta("b", pair[0][1], "]]]]...x........"),
+                        Options(use_constraint=True, show_energy=True,
+                                use_pf_duplex=opts.use_pf_duplex),
+                        device="cpu")
+            assert len(p.r1) == 16
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "ractip_tpu"))
         assert not bad, bad
@@ -169,3 +180,8 @@ def test_device_cuda_without_gpu_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.predict_batch(get_default_params(), _pairs(1, 1), Options(),
                          iters=10, buckets=BUCKETS)
+    from ractip_tpu_torch.io.fasta import Fasta as TFasta
+    from ractip_tpu_torch.pipeline.ractip import predict
+    a, b = _pairs(1, 1)[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict(TFasta("a", a), TFasta("b", b))

@@ -7,6 +7,7 @@ versions.
     python3 tools/cuda_emu/emulate.py cofold L1 [B] [dES]  # K4, K5, Lc = 2 L1
     python3 tools/cuda_emu/emulate.py q2 L [B]          # K3 at bucket L
     python3 tools/cuda_emu/emulate.py duplex L1 L2 [B]  # K6, every variant
+    python3 tools/cuda_emu/emulate.py masked L          # K1-K5 at B = 1, -c
 
 For a machine without nvcc or a GPU: g++ compiles the sources against
 tools/cuda_emu/cuda_runtime.h (one std::thread per CUDA thread, barriers
@@ -28,7 +29,10 @@ duplex mode runs each K6 variant (1, 2, 4 and 8 lanes a column group and 2 or 4
 columns a group with the rings in shared memory; 1 or 2 lanes of 2 columns
 with them in device memory) on pairs with n1 < L1 and n2 < L2
 (and one filling both), both directions in one launch, in the log domain
-with the same zero cells.  Not modelled: the card's memory model and
+with the same zero cells.  The masked mode runs K1, K3, K2 on one strand
+and K4, K5 on one pair (Lc = 2 L) at B = 1 with -c masks in the factors,
+the single-pair path's inputs: a partial mask, and every pair banned
+(all-zero factors; the open chain alone).  Not modelled: the card's memory model and
 timing, cp.async (a plain copy here), and clusters or TMA (the kernels use
 neither).  The build goes to tools/cuda_emu/build/.
 """
@@ -141,6 +145,8 @@ def main() -> int:
     if a[0] == "duplex":
         return emulate_duplex(tt, enc, timed, int(a[1]), int(a[2]),
                               int(a[3]) if len(a) > 3 else 3)
+    if a[0] == "masked":
+        return emulate_masked(tt, enc, rel, int(a[1]))
     if a[0] == "fold":
         L = int(a[1])
         ns = [L, L - 7, L // 2]
@@ -276,6 +282,69 @@ def emulate_duplex(tt, enc, timed, L1, L2, B):
               f"max abs {d:.3e} (tol 5e-4), zero cells same {zeros}, "
               f"relaunch identical {same} ({s:.1f} s)", flush=True)
     return 0 if ok else 1
+
+
+
+def emulate_masked(tt, enc, rel, L):
+    import torch
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.ops import cofold as tc
+    from ractip_tpu_torch.ops import scan as ts
+    from ractip_tpu_torch.ops.constraints import cofold_allow, fold_allow
+    from ractip_tpu_torch.params.boltz import sig_tables
+    from ractip_tpu_torch.ops.factors import co_factors, fold_factors
+    n1, n2 = L - 9, L - 20
+    c1 = (".[[[[[...((((....))))x..<..>" * L)[:n1]
+    c2 = ("..(((...)))..]]]]]...|.." * L)[:n2]
+    S1, S2 = enc([n1], L), enc([n2], L)
+    N1, N2 = torch.tensor([n1]), torch.tensor([n2])
+    for label, s1 in (("partial", c1), ("banned", "x" * n1)):
+        allow = torch.as_tensor(fold_allow(s1, n1, L)[None])
+        es = ts.batch_fold(tt, S1, N1, "cpu", allow=allow)["es"]
+        sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+        ff = fold_factors(tt, S1, N1, sig, allow)
+        F = ts.stack_cols(ff)
+        w2k, bulge_k, pows = sig_tables(tt, sig)
+        args = (F, w2k, bulge_k, sig, pows)
+        n32 = N1.to(torch.int32)
+        k, p = _cuda.launch_inside(*args, n=n32), ts.inside_plain(*args)
+        qm1_c, qb_c, qm_c, _, q1 = p
+        qbe = (qb_c.transpose(1, 2) * ff.fe).contiguous()
+        q2k, q2v = _cuda.launch_q2(qbe, sig, n32), ts.q2_plain(qbe, sig, n32)
+        q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]], 1)
+        oargs = (F, qm_c.transpose(1, 2).contiguous(), qm1_c,
+                 q1pad.contiguous(), q2v, w2k, bulge_k, sig, pows)
+        o = _cuda.launch_outside(*oargs, n=n32)
+        print(f"{label} fold L={L} n={n1}: K1 max rel "
+              f"{max(rel(x, y) for x, y in zip(k, p)):.3e}, K3 max rel "
+              f"{rel(q2k, q2v):.3e}, K2 max rel "
+              f"{rel(o, ts.outside_plain(*oargs)):.3e}", flush=True)
+        alc = torch.as_tensor(cofold_allow(s1, c2, n1, n2, 2 * L)[None])
+        es = tc.batch_cofold(tt, S1, S2, N1, N2, "cpu", allow=alc)["es"]
+        sig = torch.exp(-es / tt.scalar(tt.bt.kt))
+        S, n, cut = tc._pack_concat(S1, S2, N1), N1 + N2, N1
+        ff = co_factors(tt, S, n, cut, sig, alc)
+        F = ts.stack_cols(ff)
+        w2k, bulge_k, pows = sig_tables(tt, sig)
+        args = (F, w2k, bulge_k, sig, pows)
+        c32, n32 = cut.to(torch.int32), n.to(torch.int32)
+        k, p = _cuda.launch_inside(*args, c32, n32), ts.inside_plain(*args,
+                                                                     cut)
+        qm1_c, qb_c, qm_c, qx_c, q1 = p
+        q2v = ts.q2_plain((qb_c.transpose(1, 2) * ff.fe).contiguous(), sig, n)
+        q1pad = torch.cat([torch.ones_like(q1[:, :1]), q1[:, :-1]],
+                          1).contiguous()
+        qx = qx_c.transpose(1, 2).contiguous()
+        qxA, qBpref = tc.exterior_vectors(qx, cut)
+        qmN = qm_c.transpose(1, 2).contiguous()
+        o = _cuda.launch_outside(F, qmN, qm1_c, q1pad, q2v, w2k, bulge_k, sig,
+                                 pows, c32, qx, qxA, qBpref, n32)
+        po = tc.co_outside_plain(F, qmN, qm1_c, qx, qxA, qBpref, q1pad, q2v,
+                                 w2k, bulge_k, sig, pows, cut)
+        print(f"{label} cofold Lc={2 * L} n={n1}+{n2}: K4 max rel "
+              f"{max(rel(x, y) for x, y in zip(k, p)):.3e}, K5 max rel "
+              f"{rel(o, po):.3e}", flush=True)
+    return 0
 
 
 if __name__ == "__main__":
