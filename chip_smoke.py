@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (ractip_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(--only kernels,corpus,zscore,duplex,single runs a subset, for development;
-a subset run never prints the final ok line).
+(--only kernels,corpus,zscore,duplex,single,contrafold runs a subset, for
+development; a subset run never prints the final ok line).
 
 Phases (each prints its own lines; the run exits 0 only if all pass):
   1. device   the card's name, and name + power limit from nvidia-smi;
@@ -59,11 +59,32 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               objective within 1e-4, energies within 1e-6 kcal/mol, z and zs
               within 1e-4, and the JAX package's exception and message
               where it raises;
-  8. counts   each path's kernels launched, the other model's kernels not,
+  8. contrafold  the CONTRAfold model, checkpoint resume and the corpus
+              F-measure, against tests/data/torch_port_golden_contrafold.json
+              (tools/make_torch_contrafold_golden.py, JAX with x64): the CRF
+              log Z (within 1e-9 relative), pu and the 64 largest pair
+              probabilities (within 1e-8) of every corpus strand at full
+              length on the card, with its seconds; the golden's
+              --contrafold (8 pairs), --contrafold --duplex,
+              --contraduplex and --min-w 1 (hybridizing) cases through
+              cli.run_pair (brackets identical, objective within 1e-4
+              plus 1e-4 alpha for each hybridization chosen from the
+              float32 cofold's hp, energies within 1e-6; the duplex
+              engine's 64 largest probabilities within 1e-8); the
+              sequential --contrafold z-scores (z, zs within 1e-4); a
+              64-decoy batched z-score at chunk 16 into a checkpoint
+              directory (the LP cut to 300 iterations), run again
+              after two chunk files are deleted (z, zs and every decoy energy
+              equal, only those two chunks' cofolds run again, K4 launches
+              equal to theirs) and with another chunk size (a fresh sweep);
+              the pooled F-measure (evaluate_corpus) of the port's corpus
+              brackets for the default model and for --contrafold, equal to
+              that of the golden brackets;
+  9. counts   each path's kernels launched, the other model's kernels not,
               and no plain version on a CUDA tensor.  The counts are set to
-              0 just before each path (phases 4-5, phase 6, phase 7) and read
-              just after it; the kernels line reports the default and duplex
-              paths' counts.
+              0 just before each path (phases 4-5, phase 6, phase 7, phase 8)
+              and read just after it; the kernels line reports the default
+              and duplex paths' counts.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -99,6 +120,7 @@ OUT = ROOT / "chiprun_out"
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 GOLDEN_DUPLEX = ROOT / "tests" / "data" / "torch_port_golden_duplex.json"
 GOLDEN_SINGLE = ROOT / "tests" / "data" / "torch_port_golden_single.json"
+GOLDEN_CF = ROOT / "tests" / "data" / "torch_port_golden_contrafold.json"
 
 FOLD_B, FOLD_L = 512, 96
 CO_B, CO_L1, CO_L2, CO_CUT = 256, 96, 96, 70
@@ -120,6 +142,16 @@ Z_TPU, ZS_TPU, Z_BAND = -6.374, -2.845, 0.5
 GOLD_DECOYS, TOL_DECOY_E, TOL_Z = (256, 64), 1e-6, 1e-2
 # the single-pair path against the JAX package's single-pair golden
 TOL_OBJ, TOL_ENERGY, TOL_SINGLE_Z = 1e-4, 1e-6, 1e-4
+# the CONTRAfold model (float64) against the JAX golden made with x64 on
+TOL_CF_LOGZ, TOL_CF_PROB = 1e-9, 1e-8
+# the objective sums alpha (hp - th_hy) over the chosen hybridizations, hp
+# from the float32 cofold, which the port holds to the JAX package's within
+# 1e-4 relative (tests/test_torch_cofold.py): each chosen pair adds that
+# much to the objective's tolerance (0 of them in every default-option case)
+TOL_HP_REL = 1e-4
+# the checkpoint resume: a 64-decoy z-score of CopA x CopT at chunk 16; the
+# LP's iterations cut to this many (the certify step keeps it exact)
+CKPT_DECOYS, CKPT_CHUNK, CKPT_ITERS = 64, 16, 300
 KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
     ("inside", "ractip_tpu_torch/csrc/inside.cu",
      "ractip_tpu/ops/scan_pallas.py:349", "default"),
@@ -138,7 +170,9 @@ KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
 PATHS = {"default": {"inside", "outside", "q2", "co_inside", "co_outside"},
          "duplex": {"inside", "outside", "q2", "duplex_sweep"},
          "single": {"inside", "outside", "q2", "co_inside", "co_outside",
-                    "duplex_sweep"}}
+                    "duplex_sweep"},
+         "contrafold": {"inside", "outside", "q2", "co_inside", "co_outside",
+                        "duplex_sweep"}}
 PEAK_FLOPS = 67e12        # FP32 without tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
 MAXLOOP = 30
@@ -748,7 +782,7 @@ def phase_corpus(run: Run, timer_cls, model: str, golden: Path):
                       f"(|d|={dobj:.2e}): alternative optimum")
             say(f"    port   {r1} / {r2}\n    golden {g['r1']} / {g['r2']}")
         rows.append(dict(name=name, same=same, objective=float(obj),
-                         golden=g["objective"]))
+                         golden=g["objective"], r1=r1, r2=r2))
     run.check(tag, float(np.max(res.violation)) < 0.5,
               "all decoded structures feasible")
     run.record[tag] = dict(wall=wall, stages=timer.report(), pairs=rows)
@@ -903,6 +937,250 @@ def phase_single(run: Run):
     run.record["single"] = dict(seconds=secs, cases=rows)
 
 
+def _top_diff(m, top) -> float:
+    """Max |port - golden| at the golden's largest entries [[i, j, p]]."""
+    import numpy as np
+    m = np.asarray(m)
+    return float(max(abs(m[i, j] - p) for i, j, p in top))
+
+
+def _cf_args(flags):
+    from ractip_tpu_torch import cli
+    return cli.build_parser().parse_args(["a", "b"] + flags)
+
+
+def _cf_crf(run: Run, gold: dict, pairs: dict) -> dict:
+    """The CRF of every corpus strand at full length on the card: log Z,
+    pu and the 64 largest pair probabilities against the golden; the
+    seconds of the forward pass alone and of forward and backward."""
+    import torch
+    from ractip_tpu_torch.ops.contrafold import (cf_base_pair_probs,
+                                                 cf_logz, cf_unpaired_probs)
+    from ractip_tpu_torch.ops.seq import encode
+    secs = {}
+    for e in gold["corpus"]:
+        if e["flags"] != ["--contrafold", "-e"]:
+            continue
+        for k, (g, fa) in enumerate(zip(e["strands"], pairs[e["pair"]])):
+            S, n = encode(fa.seq, g["L"]), len(fa.seq)
+            tag = f"{e['pair']} strand {k + 1}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = float(cf_logz(S, n, device="cuda"))
+            t1 = time.perf_counter()
+            bpp = cf_base_pair_probs(S, n, device="cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pu = cf_unpaired_probs(bpp).cpu().numpy()
+            dz = abs(z - g["logz"]) / abs(g["logz"])
+            dp = max(_top_diff(bpp.cpu().numpy(), g["bpp_top"]),
+                     float(abs(pu - g["pu"]).max()))
+            run.check("contrafold", dz <= TOL_CF_LOGZ and dp <= TOL_CF_PROB,
+                      f"CRF {tag} n={n} L={g['L']}: log Z rel "
+                      f"{dz:.1e} (tol {TOL_CF_LOGZ:g}), pu and top-64 pair "
+                      f"probabilities max |d| {dp:.1e} (tol {TOL_CF_PROB:g})"
+                      f"; {t1 - t0:.3f} s forward, {t2 - t1:.3f} s forward"
+                      f" and backward")
+            secs[tag] = dict(n=n, L=g["L"], forward=t1 - t0,
+                             posteriors=t2 - t1)
+    return secs
+
+
+def _cf_cases(run: Run, gold: dict, pairs: dict) -> tuple[dict, list]:
+    """The golden's --contrafold, --contrafold --duplex and --contraduplex
+    cases through cli.run_pair; the seconds of each run's posteriors (CRF
+    and hybridization) and of the whole run.  Returns the --contrafold
+    brackets by pair and the rows."""
+    import numpy as np
+    import torch
+    from ractip_tpu_torch import cli
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.ractip import Posteriors
+    brackets, rows = {}, []
+    for e in gold["corpus"]:
+        fa1, fa2 = pairs[e["pair"]]
+        tag = f"{e['pair']} {' '.join(e['flags'])}"
+        args = _cf_args(e["flags"])
+        acc = cli.options_from_args(args).solver_cfg().accessibility
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = Posteriors(get_default_params(), fa1.seq, fa2.seq, args.max_w,
+                          acc, use_pf_duplex=args.duplex,
+                          use_contrafold=args.contrafold,
+                          use_contraduplex=args.contraduplex, device="cuda")
+        t1 = time.perf_counter()
+        r1, r2, obj, ee, _ = cli.run_pair(args, fa1, fa2)
+        t2 = time.perf_counter()
+        en = [ee[k] for k in ("e1", "e2", "e3", "e1s", "e2s")]
+        same = (r1, r2) == (e["r1"], e["r2"])
+        dobj = abs(obj - e["objective"])
+        de = float(np.max(np.abs(np.subtract(en, e["energies"]))))
+        dh = (_top_diff(post.hp, e["hp_top"]) if args.contraduplex
+              else 0.0)
+        tol = TOL_OBJ + (0.0 if args.contraduplex else
+                         args.alpha * TOL_HP_REL * e["r1"].count("["))
+        run.check("contrafold", same and dobj <= tol
+                  and de <= TOL_ENERGY and dh <= TOL_CF_PROB,
+                  f"{tag}: brackets {'identical' if same else 'DIFFER'}, "
+                  f"objective |d| {dobj:.2e} (tol {tol:g}), energies "
+                  f"max |d| {de:.2e} (tol {TOL_ENERGY:g})"
+                  + (f", duplex engine top-64 |d| {dh:.1e} (tol "
+                     f"{TOL_CF_PROB:g})" if args.contraduplex else "")
+                  + f"; posteriors {t1 - t0:.3f} s, run {t2 - t1:.3f} s")
+        if not same:
+            say(f"    port   {r1} / {r2}\n    golden {e['r1']} / {e['r2']}")
+        if e["flags"] == ["--contrafold", "-e"]:
+            brackets[e["pair"]] = (r1, r2)
+        rows.append(dict(pair=e["pair"], flags=e["flags"], same=same,
+                         dobj=dobj, de=de, dh=dh, posteriors=t1 - t0,
+                         run=t2 - t1))
+    for e in gold["zscores"]:
+        t0 = time.perf_counter()
+        r1, r2, obj, ee, zs = cli.run_pair(_cf_args(e["flags"]),
+                                           *pairs[e["pair"]])
+        # zs is infinite where no decoy hybridizes (its variance is 0)
+        dz = max(0.0 if a == b else abs(a - b)
+                 for a, b in zip(zs, e["zscore"]))
+        run.check("contrafold", (r1, r2) == (e["r1"], e["r2"])
+                  and dz <= TOL_SINGLE_Z,
+                  f"{e['pair']} {' '.join(e['flags'])}: z {zs[0]:.6f} zs "
+                  f"{zs[1]:.6f} (golden {e['zscore'][0]:.6f} "
+                  f"{e['zscore'][1]:.6f}, tol {TOL_SINGLE_Z:g}); "
+                  f"{time.perf_counter() - t0:.2f} s")
+    return brackets, rows
+
+
+class _CofoldCounts:
+    """A stage timer that records the K4 launches of each "cofold" stage:
+    one entry per chunk of predict_batch that ran."""
+
+    def __init__(self):
+        self.k4: list[int] = []
+
+    def __call__(self, name):
+        import contextlib
+        from ractip_tpu_torch.ops import _cuda
+
+        @contextlib.contextmanager
+        def cm():
+            before = _cuda.LAUNCHES["co_inside"]
+            yield self
+            if name == "cofold":
+                self.k4.append(_cuda.LAUNCHES["co_inside"] - before)
+        return cm()
+
+
+def _cf_resume(run: Run) -> dict:
+    """A 64-decoy batched z-score at chunk 16 into a checkpoint directory;
+    again after two chunk files are deleted; again at another chunk size."""
+    import shutil
+    import numpy as np
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.batched import zscore_batch
+    from ractip_tpu_torch.pipeline.options import Options
+    d = OUT / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    fa1, fa2 = record("CopA.fa"), record("CopT.fa")
+    opts = Options(zscore=12, num_shuffling=CKPT_DECOYS, seed=1)
+
+    def sweep(chunk):
+        counts = _CofoldCounts()
+        t0 = time.perf_counter()
+        z, zs, st = zscore_batch(fa1, fa2, opts, get_default_params(),
+                                 chunk=chunk, iters=CKPT_ITERS,
+                                 ckpt_dir=str(d), timer=counts,
+                                 device="cuda")
+        fp = json.loads((d / "MANIFEST.json").read_text())["fingerprint"]
+        return z, zs, st, counts.k4, fp, time.perf_counter() - t0
+
+    z0, zs0, st0, k0, fp0, s0 = sweep(CKPT_CHUNK)
+    n = CKPT_DECOYS // CKPT_CHUNK
+    files = sorted(p.name for p in d.glob("chunk_*.npz"))
+    kept = {i: (d / f"chunk_{i:06d}.npz").stat().st_mtime_ns
+            for i in (0, 2)}
+    for i in (1, 3):
+        (d / f"chunk_{i:06d}.npz").unlink()
+    z1, zs1, st1, k1, fp1, s1 = sweep(CKPT_CHUNK)
+    same = (z1 == z0 and zs1 == zs0
+            and np.array_equal(st1["decoy_e"], st0["decoy_e"])
+            and np.array_equal(st1["decoy_es"], st0["decoy_es"])
+            and st1["decoy_r1"] == st0["decoy_r1"]
+            and st1["decoy_r2"] == st0["decoy_r2"])
+    untouched = all((d / f"chunk_{i:06d}.npz").stat().st_mtime_ns == t
+                    for i, t in kept.items())
+    run.check("contrafold", len(files) == n and len(k0) == n + 1
+              and same and fp1 == fp0 and untouched
+              and k1 == [k0[0], k0[2], k0[4]],
+              f"checkpoint resume: {len(files)} chunk files of {n}; after "
+              f"chunks 1 and 3 were deleted, z {z1:.6f} zs {zs1:.6f} (the "
+              f"uninterrupted run's {z0:.6f} {zs0:.6f}; every decoy energy "
+              f"and bracket equal: {same}), cofold runs with K4 launches "
+              f"{k1} (the real pair's and chunks 1 and 3's of {k0}), chunks"
+              f" 0 and 2 untouched: {untouched}; {s0:.2f} s, {s1:.2f} s")
+    z2, zs2, _, k2, fp2, s2 = sweep(2 * CKPT_CHUNK)
+    run.check("contrafold", fp2 != fp0 and len(k2) == n // 2 + 1,
+              f"chunk {2 * CKPT_CHUNK}: a fresh sweep (fingerprint {fp2} "
+              f"for {fp0}, {len(k2) - 1} chunks ran of {n // 2}), z {z2:.6f}"
+              f" zs {zs2:.6f}; {s2:.2f} s")
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(z=z0, zs=zs0, k4=[k0, k1, k2], seconds=[s0, s1, s2])
+
+
+def _cf_fmeasure(run: Run, brackets: dict) -> dict:
+    """Pooled F-measure of the port's corpus brackets, default model and
+    --contrafold, against that of the golden brackets."""
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs, evaluate_corpus
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.batched import predict_batch
+    names = {(a.seq, b.seq): name for name, a, b in corpus_pairs()}
+    default = run.record.get("default corpus", {}).get("pairs")
+    if default:
+        port = {p["name"]: (p["r1"], p["r2"]) for p in default}
+    else:   # phase 4 did not run: the corpus batch here
+        res = predict_batch(get_default_params(), list(names), device="cuda")
+        port = {names[k]: (a, b) for k, a, b in zip(names, res.r1, res.r2)}
+    gold_default = {p["name"]: (p["r1"], p["r2"]) for p in
+                    json.loads(GOLDEN.read_text())["corpus"]["pairs"]}
+    gold_cf = {e["pair"]: (e["r1"], e["r2"]) for e in
+               json.loads(GOLDEN_CF.read_text())["corpus"]
+               if e["flags"] == ["--contrafold", "-e"]}
+    out = {}
+    for model, got, want in (("default", port, gold_default),
+                             ("--contrafold", brackets, gold_cf)):
+        f = [evaluate_corpus(lambda a, b, t=t: t[names[(a.seq, b.seq)]])
+             ["pooled"] for t in (got, want)]
+        run.check("contrafold", f[0] == f[1],
+                  f"pooled F-measure, {model}: " + ", ".join(
+                      f"{k} {v[2]:.4f}" for k, v in f[0].items())
+                  + " (golden brackets: " + ", ".join(
+                      f"{k} {v[2]:.4f}" for k, v in f[1].items()) + ")")
+        out[model] = f[0]
+    return out
+
+
+def phase_contrafold(run: Run):
+    """The CONTRAfold model, the checkpoint resume and the corpus
+    F-measure (phase 8)."""
+    from ractip_tpu_torch.evaluate.corpus import corpus_pairs
+    gold = json.loads(GOLDEN_CF.read_text())
+    pairs = {name: (a, b) for name, a, b in corpus_pairs()}
+    rec = {}
+    t0 = time.perf_counter()
+    rec["crf_seconds"] = _cf_crf(run, gold, pairs)
+    t1 = time.perf_counter()
+    brackets, rec["cases"] = _cf_cases(run, gold, pairs)
+    t2 = time.perf_counter()
+    rec["resume"] = _cf_resume(run)
+    t3 = time.perf_counter()
+    rec["fmeasure"] = _cf_fmeasure(run, brackets)
+    rec["seconds"] = dict(crf=t1 - t0, cases=t2 - t1, resume=t3 - t2,
+                          fmeasure=time.perf_counter() - t3)
+    secs = {k: round(v, 2) for k, v in rec["seconds"].items()}
+    say(f"  seconds: {json.dumps(secs)}")
+    run.record["contrafold"] = rec
+
+
 def count_path(run: Run, window: str, path: str, launches: dict,
                plain: dict) -> None:
     """The path's kernels launched, the others not, no plain version on a
@@ -919,7 +1197,8 @@ def count_path(run: Run, window: str, path: str, launches: dict,
 
 def main() -> int:
     import argparse
-    phases = {"kernels", "corpus", "zscore", "duplex", "single"}
+    phases = {"kernels", "corpus", "zscore", "duplex", "single",
+              "contrafold"}
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--only", default=",".join(sorted(phases)),
                     help="comma list of phases after the build: "
@@ -940,7 +1219,7 @@ def main() -> int:
         bail(f"the port is not next to this script ({e})")
     if Path(ractip_tpu_torch.__file__).resolve().parent.parent != ROOT:
         bail("ractip_tpu_torch was not imported from this checkout")
-    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE):
+    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE, GOLDEN_CF):
         if not g.exists():
             bail(f"missing {g.relative_to(ROOT)}")
     from ractip_tpu_torch.ops import _cuda
@@ -980,8 +1259,11 @@ def main() -> int:
                 counted(model, model, main)
         if "single" in only:
             counted("single", "single", [("7 single pair", phase_single)])
+        if "contrafold" in only:
+            counted("contrafold", "contrafold",
+                    [("8 contrafold", phase_contrafold)])
         if counts:
-            say("== 8 launch counts")
+            say("== 9 launch counts")
             for window, (path, launches, plain) in counts.items():
                 count_path(run, window, path, launches, plain)
         run.record["launches"] = {k: v[1] for k, v in counts.items()}

@@ -2,12 +2,12 @@
 
 Mirrors ractip_tpu/cli.py (:138-270) and routes as it does: --rip solves
 the pair on imported posteriors; --zscore runs the batched decoy sweep
-(pipeline/batched.py) unless --no-batch, or -c with constraint strings,
-sends it through the sequential loop of the single-pair exact path
+(pipeline/batched.py, resumable with --ckpt-dir) unless --no-batch, the
+CONTRAfold model (--contrafold, --contraduplex), or -c with constraint
+strings sends it through the sequential loop of the single-pair exact path
 (pipeline/ractip.py::predict), which also serves every run without
---zscore.  Flags of the reference that the port does not carry yet exit
-non-zero with the ROADMAP item that will bring them; none is ignored
-quietly.
+--zscore.  --mesh, which the port does not carry yet, exits non-zero with
+the ROADMAP item that will bring it; no flag is ignored quietly.
 
 Usage: python -m ractip_tpu_torch.cli A.fa B.fa [-e] [-c] [--zscore 12] ...
 """
@@ -27,10 +27,7 @@ from .utils.timing import StageTimer, stage
 
 # reference flags outside the port -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "contrafold": ("--contrafold", "queue 1 item 3 (CONTRAfold)"),
-    "contraduplex": ("--contraduplex", "queue 1 item 3 (CONTRAfold)"),
     "mesh": ("--mesh", "queue 1 item 4 (multi-GPU)"),
-    "ckpt_dir": ("--ckpt-dir", "queue 1 item 2 (ckpt_dir resume)"),
 }
 # the sections a complete Vienna parameter dump defines
 CORE_SECTIONS = {"stack", "mismatch_h", "mismatch_i", "dangle5", "dangle3",
@@ -90,6 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "place of the cofold")
     ap.add_argument("--no-bl", action="store_true",
                     help="do not use BL parameters (needs -P)")
+    ap.add_argument("--contrafold", action="store_true",
+                    help="use CONTRAfold's learned model for the base-pairing "
+                         "and accessibility posteriors")
+    ap.add_argument("--contraduplex", action="store_true",
+                    help="hybridization posteriors from CONTRAfold's duplex "
+                         "engine (the reference ships this engine but never "
+                         "calls it); implies --contrafold")
     ap.add_argument("--batch", dest="batch", action="store_true", default=True,
                     help="batch the z-score sweep on the device (default)")
     ap.add_argument("--no-batch", dest="batch", action="store_false",
@@ -97,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "exact path")
     ap.add_argument("--chunk", type=int, default=256,
                     help="device batch chunk size")
+    ap.add_argument("--ckpt-dir", type=str, default=None, metavar="DIR",
+                    help="checkpoint directory for the batched decoy sweep; "
+                         "a killed run resumes after the last completed "
+                         "chunk")
     ap.add_argument("--exact-gap-tol", type=float, default=1e-4,
                     metavar="TOL",
                     help="certified-exactness tolerance on the batched "
@@ -111,12 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
-    flag = lambda *names, **kw: ap.add_argument(*names, help=argparse.SUPPRESS,
-                                                **kw)
-    flag("--contrafold", action="store_true")
-    flag("--contraduplex", action="store_true")
-    flag("--mesh", action="store_true")
-    flag("--ckpt-dir", default=None)
+    ap.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -130,7 +133,9 @@ def options_from_args(args) -> Options:
         force_constraint=args.force_constraint,
         zscore=args.zscore, num_shuffling=args.num_shuffling,
         seed=args.seed, show_energy=args.show_energy,
-        use_constraint=args.use_constraint, use_pf_duplex=args.duplex)
+        use_constraint=args.use_constraint, use_pf_duplex=args.duplex,
+        use_contrafold=args.contrafold,
+        use_contraduplex=args.contraduplex)
 
 
 def _fmt_sum(parts: list[float]) -> str:
@@ -163,10 +168,11 @@ def run_pair(args, fa1, fa2, timer=None):
     """One pair, routed as ractip_tpu/cli.py:138-270 routes it: (r1, r2,
     objective, energies, zscore).  --rip solves the pair on the imported
     posteriors (objective only); --zscore runs the batched decoy sweep
-    (energies e, es; no objective) unless --no-batch, or -c with
-    constraint strings, sends it through the sequential z-score of the
-    single-pair exact path, which serves every other run (energies e1 e2
-    e3 e1s e2s with -e or --zscore)."""
+    (energies e, es; no objective; --ckpt-dir makes it resumable) unless
+    --no-batch, the CONTRAfold model, or -c with constraint strings sends
+    it through the sequential z-score of the single-pair exact path, which
+    serves every other run (energies e1 e2 e3 e1s e2s with -e or
+    --zscore)."""
     opts = options_from_args(args)
     params = load_params(args.param_file, args.no_bl)
     dev = args.device
@@ -179,22 +185,25 @@ def run_pair(args, fa1, fa2, timer=None):
         r1, r2, obj, _, _ = solve_pair(params, fa1, fa2, opts, post=post)
         return r1, r2, float(obj), None, None
 
-    # the batched path carries no constraint masks: -c with constraint
-    # strings takes the sequential exact path, as the reference honours -c
-    # in z-score runs
-    can_batch = args.batch and not (opts.use_constraint
-                                    and (fa1.str_ or fa2.str_))
+    # the batched path carries neither constraint masks nor the CONTRAfold
+    # model: those take the sequential exact path, as the reference honours
+    # -c and --contrafold in z-score runs
+    can_batch = (args.batch and not opts.use_contrafold
+                 and not opts.use_contraduplex
+                 and not (opts.use_constraint and (fa1.str_ or fa2.str_)))
     if args.zscore in (1, 2, 12) and can_batch:
         gap_tol = args.exact_gap_tol if args.exact_gap_tol > 0 else None
         z, zs, st = zscore_batch(fa1, fa2, opts, params, chunk=args.chunk,
+                                 ckpt_dir=args.ckpt_dir,
                                  exact_gap_tol=gap_tol, timer=timer,
                                  device=dev)
         return (*st["brackets"], None,
                 dict(e=float(st["e"]), es=float(st["es"])),
                 (float(z), float(zs)))
     if args.zscore in (1, 2, 12) and args.batch:
-        print("ractip-tpu-torch: -c not supported on the batched z-score "
-              "path; falling back to the sequential path", file=sys.stderr)
+        print("ractip-tpu-torch: -c/--contrafold not supported on the "
+              "batched z-score path; falling back to the sequential path",
+              file=sys.stderr)
     with stage(timer, "predict"):
         pred = predict(fa1, fa2, opts, params, device=dev)
     ee = None

@@ -17,6 +17,17 @@ pair come from the port's batched DPs at B = 1 on `device`:
 
 and go back to the host as numpy arrays, where solver/candidates.py builds
 the joint program and solver/milp.py solves it exactly with HiGHS.
+
+Under the CONTRAfold model (use_contrafold, use_contraduplex; the JAX
+package's branch at ractip_tpu/pipeline/ractip.py:88-122, the reference's
+contrafold() / contraduplex(), src/ractip.cpp:195-246) bpp comes from the
+learned CRF of each strand (ops/contrafold.py, float64) and -c masks do not
+apply; hp comes from the cofold (K4, K5, K3), as the reference's
+hybridization does even under --contrafold (its contraduplex() call is
+commented out, src/ractip.cpp:539-541), from the duplex sweep (K6) with
+use_pf_duplex, and from the CRF duplex engine (ops/contraduplex.py) with
+use_contraduplex; pu is the width-1 proxy max(0, 1 - sum_j bp(i, j))
+(src/ractip.cpp:213-222) in column 1 of an [L, max(1, max_w) + 1] array.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from ..io.fasta import Fasta
 from ..ops import constraints, eos
 from ..ops.accessibility import unpaired_probs
 from ..ops.cofold import batch_cofold
+from ..ops.contraduplex import cd_hybrid_probs
+from ..ops.contrafold import cf_base_pair_probs, cf_unpaired_probs
 from ..ops.duplex import batch_duplex
 from ..ops.scan import as_tables, batch_fold
 from ..ops.seq import bucket_length, encode
@@ -40,10 +53,6 @@ from ..solver.milp import exact_solve
 from .batched import decode_brackets
 from .options import Options
 from .shuffle import dinuc_shuffle
-
-CONTRAFOLD = ("the CONTRAfold model (--contrafold, --contraduplex) is not "
-              "ported yet (ROADMAP.md queue 1 item 3)")
-
 
 @dataclasses.dataclass
 class Prediction:
@@ -70,8 +79,6 @@ class Posteriors:
                  cstr1: str | None = None, cstr2: str | None = None,
                  use_contrafold: bool = False,
                  use_contraduplex: bool = False, device="cuda"):
-        if use_contrafold or use_contraduplex:
-            raise NotImplementedError(CONTRAFOLD)
         dev = resolve(device)
         tt = as_tables(params, dev)
         self.n1, self.n2 = len(s1), len(s2)
@@ -81,6 +88,10 @@ class Posteriors:
         S1, S2 = codes(s1, self.L1), codes(s2, self.L2)
         n1 = torch.tensor([self.n1], device=dev)
         n2 = torch.tensor([self.n2], device=dev)
+        if use_contrafold or use_contraduplex:
+            self._contrafold(tt, S1, S2, n1, n2, max_w, need_acc,
+                             use_pf_duplex, use_contraduplex, dev)
+            return
         # -c/--use-constraint: pf-level hard-constraint masks from the FASTA
         # constraint strings (reference src/ractip.cpp:270-290, :403-444)
         mask = lambda a: None if a is None else torch.as_tensor(
@@ -107,6 +118,29 @@ class Posteriors:
                 return _host(unpaired_probs(tt, f["ff"], f["ins"], f["ob"],
                                             n, w, f["sig"]))
             self.pu1, self.pu2 = pu(f1, S1, n1, al1), pu(f2, S2, n2, al2)
+
+    def _contrafold(self, tt, S1, S2, n1, n2, max_w, need_acc,
+                    use_pf_duplex, use_contraduplex, dev):
+        """bpp and pu from the CRF; hp from the cofold, the duplex sweep or
+        the CRF duplex engine (ractip_tpu/pipeline/ractip.py:88-122)."""
+        bpp1 = cf_base_pair_probs(S1[0], self.n1, device=dev)
+        bpp2 = cf_base_pair_probs(S2[0], self.n2, device=dev)
+        if use_contraduplex:
+            hp = cd_hybrid_probs(S1[0], S2[0], self.n1, self.n2,
+                                 device=dev)[None]
+        elif use_pf_duplex:
+            hp = batch_duplex(tt, S1, S2, n1, n2).pr
+        else:
+            hp = batch_cofold(tt, S1, S2, n1, n2, dev)["hp"]
+        self.hp = _host(hp)
+        self.bpp1, self.bpp2 = bpp1.cpu().numpy(), bpp2.cpu().numpy()
+        self.pu1 = self.pu2 = None
+        if need_acc:
+            def pu(bpp):
+                out = np.zeros((bpp.shape[0], max(1, max_w) + 1))
+                out[:, 1] = cf_unpaired_probs(bpp).cpu().numpy()
+                return out
+            self.pu1, self.pu2 = pu(bpp1), pu(bpp2)
 
     @classmethod
     def from_matrices(cls, bpp1, bpp2, hp, pu1=None, pu2=None):

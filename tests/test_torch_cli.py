@@ -7,8 +7,11 @@ files (Tar-Tarstar; the default model in tests/data/torch_port_golden.json,
 strings in the FASTA files), -r, -P and --acc-max run through cli.main and
 must give the brackets and energies of the JAX package's single-pair path
 recorded in tests/data/torch_port_golden_single.json
-(tools/make_torch_single_golden.py).  The reference flags the port does not
-carry yet exit non-zero naming their ROADMAP item."""
+(tools/make_torch_single_golden.py).  --contrafold z-scores take the
+sequential path with the JAX CLI's note on stderr, --contraduplex reaches
+the CRF duplex engine and --ckpt-dir reaches the batched z-score; --mesh,
+which the port does not carry yet, exits non-zero naming its ROADMAP
+item."""
 
 import json
 import os
@@ -89,9 +92,55 @@ def test_ported_flags_match_golden(case, flags, tmp_path, capsys,
             assert abs(g - w) <= 1e-6 + 5e-6 * abs(w), (out[6], want)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--contrafold"], ["--contraduplex"], ["--mesh"], ["--ckpt-dir", "d"]])
+@pytest.mark.parametrize("flag", [["--mesh"]])
 def test_flags_outside_the_slice_refuse(flag, capsys):
     assert cli.main(TAR + flag + ["--device", "cpu"]) != 0
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--contrafold", "--zscore", "12", "--num-shuffling", "2", "--seed", "3"],
+    ["--contraduplex"],
+    ["--zscore", "12", "--ckpt-dir", "DIR"]])
+def test_slice_flags_route(flags, tmp_path, capsys, monkeypatch):
+    """Each flag this slice ports reaches what the JAX CLI routes it to."""
+    from ractip_tpu_torch.pipeline import ractip
+    calls = []
+
+    def no_batch(*a, **k):
+        raise AssertionError("took the batched z-score path")
+    if "--ckpt-dir" in flags:
+        flags = [str(tmp_path) if f == "DIR" else f for f in flags]
+
+        def stub(fa1, fa2, opts, params, **kw):
+            calls.append(kw["ckpt_dir"])
+            return -1.5, -0.5, dict(brackets=("." * 16, "." * 16), e=0.0,
+                                    es=0.0)
+        monkeypatch.setattr(cli, "zscore_batch", stub)
+    else:
+        monkeypatch.setattr(cli, "zscore_batch", no_batch)
+        real = ractip.cd_hybrid_probs
+
+        def recorded(*a, **k):
+            calls.append("cd_hybrid_probs")
+            return real(*a, **k)
+        monkeypatch.setattr(ractip, "cd_hybrid_probs", recorded)
+    fastas = TAR
+    if "--contrafold" in flags:     # the pair cut short: 3 sequential runs
+        fastas = []
+        for fa in map(record, ("Tar.fa", "Tarstar.fa")):
+            path = tmp_path / f"{len(fastas)}.fa"
+            path.write_text(f">{fa.name}\n{fa.seq[:12]}\n")
+            fastas.append(str(path))
+    assert cli.main(fastas + flags + ["--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    if "--contrafold" in flags:
+        assert ("-c/--contrafold not supported on the batched z-score path; "
+                "falling back to the sequential path") in err
+        assert out.splitlines()[-1].startswith("z-score: ")
+    elif "--contraduplex" in flags:
+        assert calls == ["cd_hybrid_probs"] and len(out.splitlines()) == 6
+    else:
+        assert calls == [str(tmp_path)]
+        assert out.splitlines()[-1] == "z-score: -1.5, -0.5"

@@ -148,6 +148,11 @@ def test_port_never_imports_jax():
         import ractip_tpu_torch.io.rip  # noqa: F401
         import ractip_tpu_torch.params.vienna_par  # noqa: F401
         import ractip_tpu_torch.utils.records  # noqa: F401
+        import ractip_tpu_torch.io.sstruct  # noqa: F401
+        from ractip_tpu_torch.evaluate.corpus import evaluate_corpus
+        from ractip_tpu_torch.ops.contraduplex import cd_logz
+        from ractip_tpu_torch.ops.contrafold import cf_base_pair_probs
+        from ractip_tpu_torch.utils.checkpoint import SweepCheckpoint
         from ractip_tpu_torch.io.fasta import Fasta
         from ractip_tpu_torch.pipeline.ractip import predict
         pair = [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")]
@@ -161,6 +166,12 @@ def test_port_never_imports_jax():
                                 use_pf_duplex=opts.use_pf_duplex),
                         device="cpu")
             assert len(p.r1) == 16
+        assert cf_base_pair_probs([1, 2, 3, 4, 1, 2], 6, device="cpu").shape \
+            == (6, 6)
+        assert float(cd_logz([3, 3, 3], [2, 2, 2], 3, 3, device="cpu")) > 0
+        assert evaluate_corpus(lambda a, b: ("." * len(a.seq),
+                                             "." * len(b.seq)))["pooled"]
+        assert callable(SweepCheckpoint.map_chunks)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "ractip_tpu"))
         assert not bad, bad
@@ -185,3 +196,12 @@ def test_device_cuda_without_gpu_raises():
     a, b = _pairs(1, 1)[0]
     with pytest.raises(RuntimeError, match="CUDA"):
         predict(TFasta("a", a), TFasta("b", b))
+    from ractip_tpu_torch.ops.contraduplex import cd_hybrid_probs
+    from ractip_tpu_torch.ops.contrafold import cf_base_pair_probs
+    from ractip_tpu_torch.pipeline.options import Options as TOptions
+    for call in (lambda: cf_base_pair_probs([1, 2, 3, 4], 4),
+                 lambda: cd_hybrid_probs([1, 2], [3, 4], 2, 2),
+                 lambda: predict(TFasta("a", a), TFasta("b", b),
+                                 TOptions(use_contrafold=True))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
