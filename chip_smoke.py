@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (ractip_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(--only kernels,corpus,zscore,duplex,single,contrafold runs a subset, for
-development; a subset run never prints the final ok line).
+(--only kernels,corpus,zscore,duplex,single,contrafold,rest runs a subset,
+for development; a subset run never prints the final ok line).
 
 Phases (each prints its own lines; the run exits 0 only if all pass):
   1. device   the card's name, and name + power limit from nvidia-smi;
@@ -80,11 +80,34 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               the pooled F-measure (evaluate_corpus) of the port's corpus
               brackets for the default model and for --contrafold, equal to
               that of the golden brackets;
-  9. counts   each path's kernels launched, the other model's kernels not,
+  9. rest     what the earlier slices left: every case of
+              tests/data/torch_port_golden_contrafold_decode.json
+              (tools/make_torch_decode_golden.py, JAX with x64) on the card:
+              cf_viterbi and cf_mea of the corpus strands, cf_logz,
+              posteriors and cf_viterbi under an allow mask and under helix
+              weights, cf_loss_augmented_viterbi and cf_margin, 200
+              cf_stochastic_traceback samples (scores and log Z within 1e-9
+              relative, probabilities within 1e-8, mappings and samples
+              identical; the seconds of each function at each length); the
+              branch-and-bound (RACTIP_TPU_EXACT_BACKEND=bnb, node LPs on the
+              card) on the single-pair golden's two shortest pairs through
+              cli.run_pair, without -e (brackets identical, objective
+              within 1e-4 of the HiGHS optimum; seconds, nodes and LPs);
+              the 64-decoy CopA x CopT z-score at chunk 16 with the LP cut
+              to 300 iterations run three ways, through the CLI with
+              --mesh and no torchrun environment (unsharded), over a
+              process group of one rank under NCCL, and over two spawned
+              ranks sharing the card under gloo (every decoy energy equal
+              to the unsharded run's, z and zs within 1e-4 of the JAX
+              golden's 64-decoy run, each rank ran exactly its share of
+              the rows, K1-K5 launched in each rank); entry("cuda") in a
+              launch window of its own (K1-K5) and dryrun_multichip(2,
+              "cuda");
+ 10. counts   each path's kernels launched, the other model's kernels not,
               and no plain version on a CUDA tensor.  The counts are set to
-              0 just before each path (phases 4-5, phase 6, phase 7, phase 8)
-              and read just after it; the kernels line reports the default
-              and duplex paths' counts.
+              0 just before each path (phases 4-5, phase 6, phase 7, phase 8,
+              phase 9) and read just after it; the kernels line reports the
+              default and duplex paths' counts.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -121,6 +144,8 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 GOLDEN_DUPLEX = ROOT / "tests" / "data" / "torch_port_golden_duplex.json"
 GOLDEN_SINGLE = ROOT / "tests" / "data" / "torch_port_golden_single.json"
 GOLDEN_CF = ROOT / "tests" / "data" / "torch_port_golden_contrafold.json"
+GOLDEN_DECODE = (ROOT / "tests" / "data"
+                 / "torch_port_golden_contrafold_decode.json")
 
 FOLD_B, FOLD_L = 512, 96
 CO_B, CO_L1, CO_L2, CO_CUT = 256, 96, 96, 70
@@ -152,6 +177,11 @@ TOL_HP_REL = 1e-4
 # the checkpoint resume: a 64-decoy z-score of CopA x CopT at chunk 16; the
 # LP's iterations cut to this many (the certify step keeps it exact)
 CKPT_DECOYS, CKPT_CHUNK, CKPT_ITERS = 64, 16, 300
+# the sharded z-score at those settings against the JAX golden's 64-decoy
+# run (tests/data/torch_port_golden.json, "zscore"), within TOL_SINGLE_Z
+MESH_Z, MESH_ZS = -5.702068, -3.321049
+# the branch-and-bound on the single-pair golden's two shortest pairs
+BNB_PAIRS = ("Tar-Tarstar", "R1inv-R2inv")
 KERNELS = [  # name, source, TPU kernel it replaces, path whose launches count
     ("inside", "ractip_tpu_torch/csrc/inside.cu",
      "ractip_tpu/ops/scan_pallas.py:349", "default"),
@@ -172,7 +202,8 @@ PATHS = {"default": {"inside", "outside", "q2", "co_inside", "co_outside"},
          "single": {"inside", "outside", "q2", "co_inside", "co_outside",
                     "duplex_sweep"},
          "contrafold": {"inside", "outside", "q2", "co_inside", "co_outside",
-                        "duplex_sweep"}}
+                        "duplex_sweep"},
+         "rest": {"inside", "outside", "q2", "co_inside", "co_outside"}}
 PEAK_FLOPS = 67e12        # FP32 without tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
 MAXLOOP = 30
@@ -1181,6 +1212,353 @@ def phase_contrafold(run: Run):
     run.record["contrafold"] = rec
 
 
+def _rest_decode(run: Run) -> dict:
+    """Every case of the decode golden on the card: cf_viterbi and cf_mea of
+    the corpus strands, cf_logz / posteriors / cf_viterbi under an allow
+    mask and under helix weights, the loss-augmented Viterbi and the
+    margin, the stochastic samples; the seconds of each function at each
+    length."""
+    import numpy as np
+    import torch
+    from ractip_tpu_torch.ops import contrafold as cf
+    from ractip_tpu_torch.ops.seq import encode
+    gold = json.loads(GOLDEN_DECODE.read_text())
+    secs: dict = {}
+
+    def timed(name, L, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, device="cuda", **k)
+        torch.cuda.synchronize()
+        secs.setdefault(f"{name} L={L}", []).append(time.perf_counter() - t0)
+        return out
+
+    def rel(got, want):
+        return abs(float(got) - want) / max(abs(want), 1.0)
+
+    for e in gold["viterbi"]:
+        S, n, L = encode(e["seq"], e["L"]), e["n"], e["L"]
+        score, mapping = timed("cf_viterbi", L, cf.cf_viterbi, S, n)
+        bpp = timed("cf_base_pair_probs", L, cf.cf_base_pair_probs, S, n)
+        t0 = time.perf_counter()
+        mea = [cf.cf_mea(bpp, n, g).tolist() for g in (6.0, 1.0)]
+        secs.setdefault(f"cf_mea L={L}", []).append(time.perf_counter() - t0)
+        ok = (rel(score, e["score"]) <= TOL_CF_LOGZ
+              and mapping.tolist() == e["mapping"]
+              and mea == [e["mea6"], e["mea1"]])
+        run.check("rest", ok, f"cf_viterbi {e['pair']} strand {e['strand']} "
+                  f"n={n} L={L}: score rel {rel(score, e['score']):.1e} "
+                  f"(tol {TOL_CF_LOGZ:g}), mapping and MEA (gamma 6, 1) "
+                  f"identical: {mapping.tolist() == e['mapping']}, "
+                  f"{mea == [e['mea6'], e['mea1']]}")
+    for key in ("allow", "helix"):
+        for e in gold[key]:
+            S, n, L = encode(e["seq"], e["L"]), e["n"], e["L"]
+            if key == "allow":
+                bits = np.unpackbits(np.frombuffer(bytes.fromhex(e["allow"]),
+                                                   np.uint8))
+                kw = dict(allow=bits[:L * L].reshape(L, L).astype(bool))
+            else:
+                kw = dict(helix=cf.cf_helix_features(e["length_at_least"],
+                                                     e["isolated"]))
+            z = timed(f"cf_logz {key}", L, cf.cf_logz, S, n, **kw)
+            bpp = timed(f"cf_base_pair_probs {key}", L,
+                        cf.cf_base_pair_probs, S, n, **kw)
+            score, mapping = timed(f"cf_viterbi {key}", L, cf.cf_viterbi, S,
+                                   n, **kw)
+            dp = _top_diff(bpp.cpu().numpy(), e["bpp_top"])
+            run.check("rest", rel(z, e["logz"]) <= TOL_CF_LOGZ
+                      and dp <= TOL_CF_PROB
+                      and rel(score, e["score"]) <= TOL_CF_LOGZ
+                      and mapping.tolist() == e["mapping"],
+                      f"{key} {e['pair']} strand {e['strand']} n={n} L={L}: "
+                      f"log Z rel {rel(z, e['logz']):.1e}, top-64 pair "
+                      f"probabilities |d| {dp:.1e} (tol {TOL_CF_PROB:g}), "
+                      f"Viterbi score rel {rel(score, e['score']):.1e}, "
+                      f"mapping identical: {mapping.tolist() == e['mapping']}")
+    for e in gold["loss"]:
+        S, n, L = encode(e["seq"], e["L"]), e["n"], e["L"]
+        for r in e["runs"]:
+            aug, score, mapping = timed(
+                "cf_loss_augmented_viterbi", L, cf.cf_loss_augmented_viterbi,
+                S, n, e["true"], r["fp"], r["fn"])
+            margin = timed("cf_margin", L, cf.cf_margin, S, n, e["true"],
+                           r["fp"], r["fn"])
+            d = max(rel(aug, r["augmented"]), rel(score, r["score"]),
+                    rel(margin, r["margin"]))
+            run.check("rest", d <= TOL_CF_LOGZ
+                      and mapping.tolist() == r["mapping"],
+                      f"loss-augmented Viterbi and margin {e['pair']} strand "
+                      f"{e['strand']} fp=fn={r['fp']}: scores rel {d:.1e}, "
+                      f"mapping identical: "
+                      f"{mapping.tolist() == r['mapping']}")
+    for e in gold["samples"]:
+        S, n, L = encode(e["seq"], e["L"]), e["n"], e["L"]
+        got = timed("cf_stochastic_traceback", L, cf.cf_stochastic_traceback,
+                    S, n, len(e["samples"]), seed=e["seed"])
+        same = sum(m.tolist() == g for m, g in zip(got, e["samples"]))
+        run.check("rest", same == len(e["samples"]),
+                  f"stochastic traceback {e['pair']} strand {e['strand']}: "
+                  f"{same}/{len(e['samples'])} samples identical (seed "
+                  f"{e['seed']})")
+    out = {k: dict(calls=len(v), mean=sum(v) / len(v), max=max(v))
+           for k, v in secs.items()}
+    for k, v in out.items():
+        say(f"  {k}: {v['calls']} calls, mean {v['mean']:.3f} s, max "
+            f"{v['max']:.3f} s")
+    return out
+
+
+def _rest_bnb(run: Run) -> list:
+    """The two shortest pairs of the single-pair golden's case a through
+    cli.run_pair with the branch-and-bound (node LPs on the card), without
+    the case's -e: the brackets and objective are the pair's one exact
+    solve's, and -e would add two solve_ss solves (~30 s each)."""
+    import os
+    from ractip_tpu_torch.solver import bnb
+    cases = [dict(e, flags=[f for f in e["flags"] if f != "-e"])
+             for e in json.loads(GOLDEN_SINGLE.read_text())["cases"]["a"]
+             if e["pair"] in BNB_PAIRS]
+    solves, lps = [], []
+    orig_solve, orig_lp = bnb.solve_joint, bnb._Search.lp
+
+    def solve(*a, **k):
+        out = orig_solve(*a, **k)
+        solves.append(out[3])
+        return out
+
+    def lp(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_lp(self, *a, **k)
+        lps.append((k.get("root", False), time.perf_counter() - t0))
+        return out
+    old = os.environ.get("RACTIP_TPU_EXACT_BACKEND")
+    os.environ["RACTIP_TPU_EXACT_BACKEND"] = "bnb"
+    bnb.solve_joint, bnb._Search.lp = solve, lp
+    rows = []
+    try:
+        for e in cases:
+            solves.clear()
+            lps.clear()
+            t0 = time.perf_counter()
+            r1, r2, obj, _, _ = _single_case(e)
+            secs = time.perf_counter() - t0
+            same = (r1, r2) == (e["r1"], e["r2"])
+            dobj = abs(obj - e["objective"])
+            root = [t for r, t in lps if r]
+            run.check("rest", same and dobj <= TOL_OBJ and len(solves) > 0,
+                      f"bnb {e['pair']} {' '.join(e['flags'])}: brackets "
+                      f"{'identical' if same else 'DIFFER'}, objective |d| "
+                      f"{dobj:.2e} from the HiGHS optimum (tol {TOL_OBJ:g})"
+                      f"; {len(solves)} solves, "
+                      f"nodes {solves}, {len(lps)} LPs ({len(root)} roots, "
+                      f"{sum(root):.2f} s; the others "
+                      f"{sum(t for r, t in lps if not r):.2f} s); "
+                      f"{secs:.2f} s")
+            rows.append(dict(pair=e["pair"], same=same, dobj=dobj,
+                             nodes=list(solves), lps=len(lps),
+                             root_seconds=root, seconds=secs))
+    finally:
+        bnb.solve_joint, bnb._Search.lp = orig_solve, orig_lp
+        if old is None:
+            os.environ.pop("RACTIP_TPU_EXACT_BACKEND", None)
+        else:
+            os.environ["RACTIP_TPU_EXACT_BACKEND"] = old
+    return rows
+
+
+class _RowsSeen:
+    """Wraps pipeline.batched._run_rows to record every row it ran."""
+
+    def __init__(self):
+        from ractip_tpu_torch.pipeline import batched
+        self.batched, self.orig, self.rows = batched, batched._run_rows, []
+
+    def __enter__(self):
+        def seen(tt, params, pairs, *a):
+            self.rows.extend(tuple(p) for p in pairs)
+            return self.orig(tt, params, pairs, *a)
+        self.batched._run_rows = seen
+        return self
+
+    def __exit__(self, *exc):
+        self.batched._run_rows = self.orig
+
+
+def _mesh_zscore(mesh=None) -> dict:
+    """The 64-decoy CopA x CopT z-score at chunk 16, LP cut to 300
+    iterations (phase 8's resume settings), optionally over a mesh; the
+    rows this process ran and its launches."""
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.ops import _cuda
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.batched import zscore_batch
+    from ractip_tpu_torch.pipeline.options import Options
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    with _RowsSeen() as seen:
+        z, zs, st = zscore_batch(
+            record("CopA.fa"), record("CopT.fa"),
+            Options(zscore=12, num_shuffling=CKPT_DECOYS, seed=1),
+            get_default_params(), chunk=CKPT_CHUNK, iters=CKPT_ITERS,
+            mesh=mesh, device="cuda")
+    return dict(z=z, zs=zs, decoy_e=[float(x) for x in st["decoy_e"]],
+                decoy_es=[float(x) for x in st["decoy_es"]],
+                rows=seen.rows, seconds=time.perf_counter() - t0,
+                launches={k: v - before.get(k, 0)
+                          for k, v in _cuda.LAUNCHES.items()})
+
+
+def _mesh_rank(rank: int, world: int, address: str) -> None:
+    """One of the spawned gloo ranks of the sharded z-score (ii): its
+    result goes to chiprun_out/mesh_rank<rank>.json."""
+    import torch.distributed as dist
+    from ractip_tpu_torch.parallel.distributed import init_distributed
+    from ractip_tpu_torch.parallel.mesh import scenario_mesh
+    init_distributed(address, world, rank, backend="gloo")
+    try:
+        out = _mesh_zscore(scenario_mesh())
+    finally:
+        dist.destroy_process_group()
+    (OUT / f"mesh_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _rest_mesh(run: Run) -> dict:
+    """The sharded z-score three ways: (iii) the CLI with --mesh and no
+    torchrun environment, (i) a process group of one rank under NCCL, (ii)
+    two spawned ranks sharing the card under gloo; each against the
+    unsharded run (iii) and the JAX golden's 64-decoy z and zs."""
+    import numpy as np
+    import torch.distributed as dist
+    from ractip_tpu_torch import cli
+    from ractip_tpu_torch.entry import free_address, spawn_ranks
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.parallel.distributed import init_distributed
+    from ractip_tpu_torch.parallel.mesh import scenario_mesh
+    from ractip_tpu_torch.pipeline import batched
+    # (iii): the CLI's routing, its zscore_batch given the LP cut
+    seen = {}
+
+    def cut(*a, **k):
+        k["iters"] = CKPT_ITERS
+        seen["mesh"] = k.get("mesh")
+        with _RowsSeen() as rows:
+            z, zs, st = batched.zscore_batch(*a, **k)
+        seen.update(decoy_e=[float(x) for x in st["decoy_e"]],
+                    decoy_es=[float(x) for x in st["decoy_es"]],
+                    rows=rows.rows)
+        return z, zs, st
+    args = cli.build_parser().parse_args(
+        ["a", "b", "--zscore", "12", "--num-shuffling", str(CKPT_DECOYS),
+         "--seed", "1", "--chunk", str(CKPT_CHUNK), "--mesh", "-e"])
+    t0 = time.perf_counter()
+    orig, cli.zscore_batch = cli.zscore_batch, cut
+    try:
+        _, _, _, _, zz = cli.run_pair(args, record("CopA.fa"),
+                                      record("CopT.fa"))
+    finally:
+        cli.zscore_batch = orig
+    ref = dict(seen, z=zz[0], zs=zz[1], seconds=time.perf_counter() - t0)
+    real, decoys = ref["rows"][0], ref["rows"][1:]
+    runs = {"iii cli --mesh": [ref]}
+    # (i): one rank under NCCL
+    init_distributed(free_address(), 1, 0, backend="nccl")
+    try:
+        runs["i nccl world 1"] = [_mesh_zscore(scenario_mesh())]
+    finally:
+        dist.destroy_process_group()
+    # (ii): two spawned ranks sharing the card under gloo
+    t0 = time.perf_counter()
+    for r in range(2):
+        (OUT / f"mesh_rank{r}.json").unlink(missing_ok=True)
+    spawn_ranks(_mesh_rank, 2, (2, free_address()))
+    runs["ii gloo world 2"] = [json.loads(
+        (OUT / f"mesh_rank{r}.json").read_text()) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for name, ranks in runs.items():
+        world = len(ranks)
+        for rank, got in enumerate(ranks):
+            same = int(np.sum(np.abs(np.subtract(got["decoy_e"],
+                                                 ref["decoy_e"]))
+                              <= TOL_DECOY_E)
+                       + np.sum(np.abs(np.subtract(got["decoy_es"],
+                                                   ref["decoy_es"]))
+                                <= TOL_DECOY_E))
+            dz = max(abs(got["z"] - MESH_Z), abs(got["zs"] - MESH_ZS))
+            want = [real]
+            for s in range(0, len(decoys), CKPT_CHUNK):
+                rows = decoys[s:s + CKPT_CHUNK]
+                rows = rows + rows[-1:] * (-len(rows) % world)
+                per = len(rows) // world
+                want += rows[rank * per:(rank + 1) * per]
+            share = [tuple(p) for p in got["rows"]] == want
+            k15 = all(got.get("launches", {}).get(k, 0) > 0 for k in
+                      ("inside", "outside", "q2", "co_inside", "co_outside")) \
+                if "launches" in got else None
+            run.check("rest", same == 2 * len(ref["decoy_e"])
+                      and dz <= TOL_SINGLE_Z and share
+                      and k15 is not False,
+                      f"sharded z-score {name} rank {rank}: z {got['z']:.6f}"
+                      f" zs {got['zs']:.6f} (JAX golden {MESH_Z} {MESH_ZS},"
+                      f" tol {TOL_SINGLE_Z:g}); {same}/"
+                      f"{2 * len(ref['decoy_e'])} decoy energies equal to "
+                      f"the unsharded run's (within {TOL_DECOY_E:g}); ran "
+                      f"its share ({len(got['rows'])} rows): {share}; "
+                      + (f"K1-K5 launched: {k15} {got['launches']}; "
+                         if k15 is not None else "")
+                      + f"{got['seconds']:.2f} s")
+            out[f"{name} rank {rank}"] = {k: got[k] for k in
+                                          ("z", "zs", "seconds")}
+    run.check("rest", ref["mesh"] is None,
+              f"the CLI with --mesh and no torchrun environment ran "
+              f"unsharded (mesh {ref['mesh']})")
+    out["spawn_seconds"] = spawn_s
+    return out
+
+
+def _rest_entry(run: Run) -> dict:
+    """entry("cuda") once, in a launch window of its own, and
+    dryrun_multichip(2, "cuda")."""
+    import torch
+    from ractip_tpu_torch.entry import dryrun_multichip, entry
+    from ractip_tpu_torch.ops import _cuda
+    fn, ex = entry("cuda")
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    obj, bound, mv = fn(*ex)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                if v > before.get(k, 0)}
+    k15 = all(launches.get(k, 0) > 0 for k in
+              ("inside", "outside", "q2", "co_inside", "co_outside"))
+    run.check("rest", k15 and tuple(obj.shape) == (2,)
+              and bool(torch.isfinite(obj).all() & torch.isfinite(bound).all()),
+              f"entry('cuda'): objectives {obj.tolist()}, bounds "
+              f"{bound.tolist()}, launches {launches}; {secs:.2f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(2, "cuda")
+    dry = time.perf_counter() - t0
+    run.check("rest", True, f"dryrun_multichip(2, 'cuda') passed in "
+              f"{dry:.2f} s")
+    return dict(entry_seconds=secs, launches=launches, dryrun_seconds=dry)
+
+
+def phase_rest(run: Run):
+    """The CONTRAfold decoding functions, the branch-and-bound, the sharded
+    z-score and the entry points (phase 9)."""
+    rec, secs = {}, {}
+    for name, fn in (("decode", _rest_decode), ("bnb", _rest_bnb),
+                     ("mesh", _rest_mesh), ("entry", _rest_entry)):
+        t0 = time.perf_counter()
+        rec[name] = fn(run)
+        secs[name] = time.perf_counter() - t0
+        say(f"  {name}: {secs[name]:.1f} s")
+    rec["seconds"] = secs
+    run.record["rest"] = rec
+
+
 def count_path(run: Run, window: str, path: str, launches: dict,
                plain: dict) -> None:
     """The path's kernels launched, the others not, no plain version on a
@@ -1198,7 +1576,7 @@ def count_path(run: Run, window: str, path: str, launches: dict,
 def main() -> int:
     import argparse
     phases = {"kernels", "corpus", "zscore", "duplex", "single",
-              "contrafold"}
+              "contrafold", "rest"}
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--only", default=",".join(sorted(phases)),
                     help="comma list of phases after the build: "
@@ -1219,7 +1597,7 @@ def main() -> int:
         bail(f"the port is not next to this script ({e})")
     if Path(ractip_tpu_torch.__file__).resolve().parent.parent != ROOT:
         bail("ractip_tpu_torch was not imported from this checkout")
-    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE, GOLDEN_CF):
+    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE, GOLDEN_CF, GOLDEN_DECODE):
         if not g.exists():
             bail(f"missing {g.relative_to(ROOT)}")
     from ractip_tpu_torch.ops import _cuda
@@ -1262,8 +1640,10 @@ def main() -> int:
         if "contrafold" in only:
             counted("contrafold", "contrafold",
                     [("8 contrafold", phase_contrafold)])
+        if "rest" in only:
+            counted("rest", "rest", [("9 rest", phase_rest)])
         if counts:
-            say("== 9 launch counts")
+            say("== 10 launch counts")
             for window, (path, launches, plain) in counts.items():
                 count_path(run, window, path, launches, plain)
         run.record["launches"] = {k: v[1] for k, v in counts.items()}

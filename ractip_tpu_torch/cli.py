@@ -6,10 +6,12 @@ the pair on imported posteriors; --zscore runs the batched decoy sweep
 CONTRAfold model (--contrafold, --contraduplex), or -c with constraint
 strings sends it through the sequential loop of the single-pair exact path
 (pipeline/ractip.py::predict), which also serves every run without
---zscore.  --mesh, which the port does not carry yet, exits non-zero with
-the ROADMAP item that will bring it; no flag is ignored quietly.
+--zscore.  --mesh (the default) shards the batched decoy sweep over the
+ranks of a torch.distributed launch (torchrun: one process a card,
+parallel/distributed.py) when there is more than one; --no-mesh keeps every
+rank on the whole sweep.
 
-Usage: python -m ractip_tpu_torch.cli A.fa B.fa [-e] [-c] [--zscore 12] ...
+Usage: python -m ractip_tpu_torch A.fa B.fa [-e] [-c] [--zscore 12] ...
 """
 
 from __future__ import annotations
@@ -18,17 +20,18 @@ import argparse
 import dataclasses
 import sys
 
+import torch
+import torch.distributed as dist
+
 from .io.fasta import load_fasta
+from .parallel.distributed import init_distributed
+from .parallel.mesh import scenario_mesh
 from .params.tables import get_default_params
 from .pipeline.batched import zscore_batch
 from .pipeline.options import Options
 from .pipeline.ractip import Posteriors, predict, solve_pair
 from .utils.timing import StageTimer, stage
 
-# reference flags outside the port -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "mesh": ("--mesh", "queue 1 item 4 (multi-GPU)"),
-}
 # the sections a complete Vienna parameter dump defines
 CORE_SECTIONS = {"stack", "mismatch_h", "mismatch_i", "dangle5", "dangle3",
                  "int11", "int21", "int22", "hairpin", "bulge", "internal",
@@ -110,8 +113,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="certified-exactness tolerance on the batched "
                          "path: instances whose device objective trails "
                          "the LP bound by more than TOL re-solve on the "
-                         "host (HiGHS) (<=0 disables, accepting "
-                         "uncertified device solutions)")
+                         "exact backend (HiGHS, or the branch-and-bound "
+                         "under RACTIP_TPU_EXACT_BACKEND=bnb) (<=0 "
+                         "disables, accepting uncertified device "
+                         "solutions)")
+    ap.add_argument("--mesh", dest="mesh", action="store_true", default=True,
+                    help="shard batched sweeps over the ranks of a "
+                         "torch.distributed launch (default; a single "
+                         "process is unaffected)")
+    ap.add_argument("--no-mesh", dest="mesh", action="store_false")
     ap.add_argument("--timings", action="store_true",
                     help="print per-stage wall times to stderr")
     ap.add_argument("--records", type=str, default=None, metavar="PATH",
@@ -119,7 +129,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
-    ap.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -168,7 +177,8 @@ def run_pair(args, fa1, fa2, timer=None):
     """One pair, routed as ractip_tpu/cli.py:138-270 routes it: (r1, r2,
     objective, energies, zscore).  --rip solves the pair on the imported
     posteriors (objective only); --zscore runs the batched decoy sweep
-    (energies e, es; no objective; --ckpt-dir makes it resumable) unless
+    (energies e, es; no objective; --ckpt-dir makes it resumable, --mesh
+    shards it over a torch.distributed launch's ranks) unless
     --no-batch, the CONTRAfold model, or -c with constraint strings sends
     it through the sequential z-score of the single-pair exact path, which
     serves every other run (energies e1 e2 e3 e1s e2s with -e or
@@ -192,9 +202,17 @@ def run_pair(args, fa1, fa2, timer=None):
                  and not opts.use_contraduplex
                  and not (opts.use_constraint and (fa1.str_ or fa2.str_)))
     if args.zscore in (1, 2, 12) and can_batch:
+        # with a multi-process launch (torchrun's environment, see
+        # parallel/distributed.py) join its process group, then shard the
+        # decoy sweep over its ranks when there is more than one
+        mesh = None
+        if args.mesh and init_distributed(
+                backend="gloo" if torch.device(dev).type == "cpu"
+                else "nccl") and dist.get_world_size() > 1:
+            mesh = scenario_mesh()
         gap_tol = args.exact_gap_tol if args.exact_gap_tol > 0 else None
         z, zs, st = zscore_batch(fa1, fa2, opts, params, chunk=args.chunk,
-                                 ckpt_dir=args.ckpt_dir,
+                                 ckpt_dir=args.ckpt_dir, mesh=mesh,
                                  exact_gap_tol=gap_tol, timer=timer,
                                  device=dev)
         return (*st["brackets"], None,
@@ -215,11 +233,6 @@ def run_pair(args, fa1, fa2, timer=None):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for dest, (name, item) in NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            print(f"ractip-tpu-torch: {name} is not ported yet "
-                  f"(ROADMAP.md {item})", file=sys.stderr)
-            return 2
     if args.no_bl and not args.param_file:
         # the reference's --no-bl keeps ViennaRNA's built-in Turner tables,
         # which are library data and not bundled: a complete dump via -P

@@ -16,7 +16,9 @@ pair come from the port's batched DPs at B = 1 on `device`:
           src/ractip.cpp:369-375): a strand without a mask reuses its fold
 
 and go back to the host as numpy arrays, where solver/candidates.py builds
-the joint program and solver/milp.py solves it exactly with HiGHS.
+the joint program and solver/milp.py::exact_solve solves it exactly: with
+HiGHS, or under RACTIP_TPU_EXACT_BACKEND=bnb with the branch-and-bound
+(solver/bnb.py), whose node LPs run on `device`.
 
 Under the CONTRAfold model (use_contrafold, use_contraduplex; the JAX
 package's branch at ractip_tpu/pipeline/ractip.py:88-122, the reference's
@@ -177,7 +179,8 @@ def solve_pair(params: EnergyParams, fa1: Fasta, fa2: Fasta, opts: Options,
     n1, n2 = post.n1, post.n2
     prob = build_problem(post.bpp1, post.bpp2, post.hp, post.pu1, post.pu2,
                          n1, n2, cfg, fa1.str_, fa2.str_)
-    u, obj, _bound, _nodes = exact_solve(prob, cfg, post.L1, post.L2)
+    u, obj, _bound, _nodes = exact_solve(prob, cfg, post.L1, post.L2,
+                                         device=device)
     r1, r2 = decode_brackets(prob, u, n1, n2, cfg.in_pk and cfg.structure)
 
     e1 = e2 = e3 = None
@@ -207,9 +210,9 @@ def solve_pair(params: EnergyParams, fa1: Fasta, fa2: Fasta, opts: Options,
         for p, q in _chosen_regions(prob, u[4], "w"):
             keep2[p: q + 1] = False
         r1s, obj1, _ = solve_ss(params, fa1.seq, opts, post.bpp1,
-                                L=post.L1, allowed=keep1)
+                                L=post.L1, allowed=keep1, device=device)
         r2s, obj2, _ = solve_ss(params, fa2.seq, opts, post.bpp2,
-                                L=post.L2, allowed=keep2)
+                                L=post.L2, allowed=keep2, device=device)
         obj += obj1 + obj2
         r1 = "".join(a if a != "." else b for a, b in zip(r1, r1s))
         r2 = "".join(a if a != "." else b for a, b in zip(r2, r2s))
@@ -219,11 +222,12 @@ def solve_pair(params: EnergyParams, fa1: Fasta, fa2: Fasta, opts: Options,
 
 def solve_ss(params: EnergyParams, s: str, opts: Options, bpp: np.ndarray,
              L: int, allowed: np.ndarray | None = None,
-             want_energy: bool = False):
+             want_energy: bool = False, device="cuda"):
     """Secondary-structure-only optimization (reference solve_ss :1366-1465)
     on the strand's posteriors bpp ([L, L]): x variables only,
     at-most-one-pairing + optional stacking rows; NO pseudoknot exclusion
-    (faithful to the reference model)."""
+    (faithful to the reference model).  `device` runs the branch-and-bound's
+    LPs where RACTIP_TPU_EXACT_BACKEND selects it."""
     n = len(s)
     if allowed is not None:
         bpp = bpp * np.outer(allowed, allowed)
@@ -231,7 +235,7 @@ def solve_ss(params: EnergyParams, s: str, opts: Options, bpp: np.ndarray,
                        stacking=opts.stacking, th_ss=opts.th_ss)
     prob = build_problem(bpp, np.zeros((1, 1)), np.zeros((n, 1)),
                          None, None, n, 1, cfg)
-    u, obj, _bound, _nodes = exact_solve(prob, cfg, L, 8)
+    u, obj, _bound, _nodes = exact_solve(prob, cfg, L, 8, device=device)
     r = decode_brackets(prob, u, n, 1, True)[0]
     e = None
     if want_energy:
@@ -253,9 +257,9 @@ def predict(fa1: Fasta, fa2: Fasta, opts: Options | None = None,
 
     if want_e:
         _, _, pred.e1s = solve_ss(params, fa1.seq, opts, post.bpp1,
-                                  L=post.L1, want_energy=True)
+                                  L=post.L1, want_energy=True, device=device)
         _, _, pred.e2s = solve_ss(params, fa2.seq, opts, post.bpp2,
-                                  L=post.L2, want_energy=True)
+                                  L=post.L2, want_energy=True, device=device)
 
     if opts.zscore in (1, 2, 12):
         rng = np.random.default_rng(opts.seed if opts.seed else None)
@@ -271,9 +275,9 @@ def predict(fa1: Fasta, fa2: Fasta, opts: Options | None = None,
                 params, Fasta("s1", t1), Fasta("s2", t2), opts,
                 want_energy=True, device=device)
             _, _, ee1s = solve_ss(params, t1, opts, spost.bpp1,
-                                  L=spost.L1, want_energy=True)
+                                  L=spost.L1, want_energy=True, device=device)
             _, _, ee2s = solve_ss(params, t2, opts, spost.bpp2,
-                                  L=spost.L2, want_energy=True)
+                                  L=spost.L2, want_energy=True, device=device)
             ee = ee1 + ee2 + ee3
             ees = ee - ee1s - ee2s
             acc += (ee, ee * ee)

@@ -1,7 +1,8 @@
 """Matrix-free PDHG for the joint-structure LP relaxation, batched.
 
 Port of ractip_tpu/solver/joint_lp.py (make_ops :69, apply_A :128, rhs :174,
-apply_AT :206, _op_norm :300, pdhg_solve :318, dual_bound :387) with the
+apply_AT :206, _op_norm :300, pdhg_solve :318, dual_bound :387,
+primal_objective :401, check_feasible :405) with the
 batch axis written out in place of vmap: every operator and iterate carries
 a leading batch dimension, and per-instance step sizes broadcast over it.
 The constraint families are those of reference src/ractip.cpp:715-1222.
@@ -330,3 +331,19 @@ def dual_bound(p: JointProblem, cfg: SolverConfig, ops: Ops, ydual: dict,
                                       ub))
     bty = sum((ydual[k] * b[k]).flatten(1).sum(1) for k in ydual)
     return bty + box
+
+
+def primal_objective(p: JointProblem, u) -> torch.Tensor:
+    """c^T u of each instance ([B])."""
+    return _dot(coefs(p), u)
+
+
+def check_feasible(p: JointProblem, cfg: SolverConfig, L1: int, L2: int, u,
+                   tol: float = 1e-4) -> torch.Tensor:
+    """Max constraint violation of each instance's (rounded) primal point
+    ([B], 0 where A u <= b holds)."""
+    ops = make_ops(p, L1, L2)
+    au = apply_A(cfg, ops, u)
+    b = rhs(cfg, ops)
+    viol = [(au[k] - b[k]).flatten(1).amax(1).clamp(min=0.0) for k in au]
+    return torch.stack(viol).amax(0)

@@ -6,11 +6,14 @@ milp.py:29-336), taking the port's JointProblem of one instance with numpy
 leaves: the batched path's certify step, and the single-pair exact path's
 MILP (pipeline/ractip.py).  It is a copy only because the JAX module cannot
 be imported without jax (ractip_tpu/solver/__init__.py imports the jax
-solvers).  The native branch-and-bound (solver/bnb.py) is not part of the
-port: HiGHS, which scipy provides, is the only backend.
+solvers).  RACTIP_TPU_EXACT_BACKEND (auto|milp|bnb) picks the exact
+backend as in the JAX package: HiGHS where scipy imports (auto), or the
+native branch-and-bound (solver/bnb.py), whose node LPs run on the device.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -294,18 +297,27 @@ def certify_or_solve(p: JointProblem, cfg: SolverConfig, L1: int, L2: int,
 
 
 def _backend() -> str:
-    """The exact host backend: HiGHS through scipy (the only one ported)."""
-    try:
-        import scipy.optimize  # noqa: F401
-    except ImportError as e:   # pragma: no cover - scipy is a dependency
-        raise RuntimeError("the exact host solves need scipy (HiGHS); the "
-                           "native branch-and-bound is not ported "
-                           "(ROADMAP queue 1)") from e
-    return "milp"
+    """The exact host backend, from RACTIP_TPU_EXACT_BACKEND (auto|milp|bnb):
+    auto is HiGHS (milp) where scipy imports, else the branch-and-bound."""
+    be = os.environ.get("RACTIP_TPU_EXACT_BACKEND", "auto")
+    if be not in ("auto", "milp", "bnb"):
+        raise ValueError(f"RACTIP_TPU_EXACT_BACKEND={be!r} "
+                         "(expected auto|milp|bnb)")
+    if be == "auto":
+        try:
+            import scipy.optimize  # noqa: F401
+            return "milp"
+        except ImportError:
+            return "bnb"
+    return be
 
 
-def exact_solve(p: JointProblem, cfg: SolverConfig, L1: int, L2: int):
-    """Exact host solve of one pair (the L3 facade role, reference
-    src/ip.h:25-44): the HiGHS MILP; raises where scipy is missing."""
-    _backend()
-    return solve_joint_milp(p, cfg, L1, L2)
+def exact_solve(p: JointProblem, cfg: SolverConfig, L1: int, L2: int,
+                iters: int = 6000, device="cuda"):
+    """Exact solve of one pair by the selected backend (the L3 facade role,
+    reference src/ip.h:25-44): the HiGHS MILP, or the branch-and-bound whose
+    node LPs (iters at the root) run on `device`."""
+    if _backend() == "milp":
+        return solve_joint_milp(p, cfg, L1, L2)
+    from .bnb import solve_joint
+    return solve_joint(p, cfg, L1, L2, iters=iters, device=device)

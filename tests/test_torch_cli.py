@@ -1,4 +1,4 @@
-"""Port CLI (ractip_tpu_torch.cli): the ported flags run, the others refuse.
+"""Port CLI (ractip_tpu_torch.cli): every flag of the JAX CLI runs.
 
 A single pair runs through the single-pair exact path (pipeline/ractip.py)
 on the CPU and must give the JAX package's brackets recorded in the golden
@@ -9,9 +9,9 @@ must give the brackets and energies of the JAX package's single-pair path
 recorded in tests/data/torch_port_golden_single.json
 (tools/make_torch_single_golden.py).  --contrafold z-scores take the
 sequential path with the JAX CLI's note on stderr, --contraduplex reaches
-the CRF duplex engine and --ckpt-dir reaches the batched z-score; --mesh,
-which the port does not carry yet, exits non-zero naming its ROADMAP
-item."""
+the CRF duplex engine, --ckpt-dir reaches the batched z-score, and --mesh
+asks parallel/distributed.py::init_distributed for a process group first
+and, with none launched, runs the unsharded z-score (mesh None)."""
 
 import json
 import os
@@ -92,32 +92,31 @@ def test_ported_flags_match_golden(case, flags, tmp_path, capsys,
             assert abs(g - w) <= 1e-6 + 5e-6 * abs(w), (out[6], want)
 
 
-@pytest.mark.parametrize("flag", [["--mesh"]])
-def test_flags_outside_the_slice_refuse(flag, capsys):
-    assert cli.main(TAR + flag + ["--device", "cpu"]) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md" in err
-
-
 @pytest.mark.parametrize("flags", [
     ["--contrafold", "--zscore", "12", "--num-shuffling", "2", "--seed", "3"],
     ["--contraduplex"],
-    ["--zscore", "12", "--ckpt-dir", "DIR"]])
+    ["--zscore", "12", "--ckpt-dir", "DIR"],
+    ["--zscore", "12", "--mesh"]])
 def test_slice_flags_route(flags, tmp_path, capsys, monkeypatch):
-    """Each flag this slice ports reaches what the JAX CLI routes it to."""
+    """Each flag a slice ports reaches what the JAX CLI routes it to."""
     from ractip_tpu_torch.pipeline import ractip
     calls = []
 
     def no_batch(*a, **k):
         raise AssertionError("took the batched z-score path")
-    if "--ckpt-dir" in flags:
+    if "--zscore" in flags and "--contrafold" not in flags:
         flags = [str(tmp_path) if f == "DIR" else f for f in flags]
 
         def stub(fa1, fa2, opts, params, **kw):
-            calls.append(kw["ckpt_dir"])
+            calls.append(kw["ckpt_dir"] or kw["mesh"])
             return -1.5, -0.5, dict(brackets=("." * 16, "." * 16), e=0.0,
                                     es=0.0)
+
+        def init(**kw):
+            calls.append(kw)
+            return False
         monkeypatch.setattr(cli, "zscore_batch", stub)
+        monkeypatch.setattr(cli, "init_distributed", init)
     else:
         monkeypatch.setattr(cli, "zscore_batch", no_batch)
         real = ractip.cd_hybrid_probs
@@ -142,5 +141,7 @@ def test_slice_flags_route(flags, tmp_path, capsys, monkeypatch):
     elif "--contraduplex" in flags:
         assert calls == ["cd_hybrid_probs"] and len(out.splitlines()) == 6
     else:
-        assert calls == [str(tmp_path)]
+        # --mesh is the default: no process group launched, no mesh
+        want = str(tmp_path) if "--ckpt-dir" in flags else None
+        assert calls == [dict(backend="gloo"), want]
         assert out.splitlines()[-1] == "z-score: -1.5, -0.5"

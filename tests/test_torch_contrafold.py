@@ -16,6 +16,19 @@ with x64 on, so no JAX is compiled here:
     engine's 64 largest hybridization probabilities) within 1e-9;
   * the same cases through the CLI's routing (cli.run_pair): brackets
     identical, objective within 1e-4, energies within 1e-6 kcal/mol.
+
+And against tests/data/torch_port_golden_contrafold_decode.json
+(tools/make_torch_decode_golden.py, JAX with x64), every entry at L <= 64
+(the longer ones, L = 96-160, are held on the card by chip_smoke.py's phase
+`rest`, which holds every entry): cf_viterbi (score within 1e-9 relative,
+mapping identical) and cf_mea at gamma 6 and 1 (mappings identical) of the
+corpus strands; cf_logz, the 64 largest cf_base_pair_probs and cf_viterbi
+under a seeded `allow` mask and under seeded helix-length weights (log Z
+and scores within 1e-9 relative, probabilities within 1e-8);
+cf_loss_augmented_viterbi and cf_margin against the curated structures at
+fp = fn = 1 and 0.7 (scores within 1e-9 relative, 1e-9 absolute near 0;
+mappings identical); 200 cf_stochastic_traceback samples (seed 42),
+identical.
 """
 
 import json
@@ -28,8 +41,10 @@ import torch
 from ractip_tpu_torch import cli
 from ractip_tpu_torch.evaluate.corpus import corpus_pairs
 from ractip_tpu_torch.ops.contraduplex import cd_hybrid_probs, cd_logz
-from ractip_tpu_torch.ops.contrafold import (cf_base_pair_probs, cf_logz,
-                                             cf_unpaired_probs)
+from ractip_tpu_torch.ops.contrafold import (
+    cf_base_pair_probs, cf_helix_features, cf_logz,
+    cf_loss_augmented_viterbi, cf_margin, cf_mea, cf_stochastic_traceback,
+    cf_unpaired_probs, cf_viterbi)
 from ractip_tpu_torch.ops.seq import encode
 from ractip_tpu_torch.params.tables import get_default_params
 from ractip_tpu_torch.pipeline.ractip import Posteriors
@@ -40,6 +55,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "tests", "data",
                        "torch_port_golden_contrafold.json")) as _fh:
     GOLD = json.load(_fh)
+with open(os.path.join(ROOT, "tests", "data",
+                       "torch_port_golden_contrafold_decode.json")) as _fh:
+    DECODE = json.load(_fh)
+DECODE_MAX_L = 64           # longer entries: chip_smoke.py, phase `rest`
 PAIRS = {name: (fa1, fa2) for name, fa1, fa2 in corpus_pairs()}
 TOL = 1e-9
 CASES = (("Tar-Tarstar", ["--contrafold", "-e"]),
@@ -59,6 +78,60 @@ def _top(m, top):
     m = np.asarray(m)
     return (np.array([m[i, j] for i, j, _ in top]),
             np.array([p for _, _, p in top]))
+
+
+def _close(got, want):
+    """Within 1e-9 relative (absolute below 1)."""
+    return abs(float(got) - want) <= TOL * max(abs(want), 1.0)
+
+
+def _allow(e):
+    L = e["L"]
+    bits = np.unpackbits(np.frombuffer(bytes.fromhex(e["allow"]), np.uint8))
+    return bits[:L * L].reshape(L, L).astype(bool)
+
+
+def _decode_matches_golden():
+    """The decoding and max-margin functions against the decode golden."""
+    short = {k: [e for e in DECODE[k] if e["L"] <= DECODE_MAX_L]
+             for k in ("viterbi", "allow", "helix", "loss", "samples")}
+    assert all(short.values()), short
+    for e in short["viterbi"]:
+        S, n = encode(e["seq"], e["L"]), e["n"]
+        score, mapping = cf_viterbi(S, n, device="cpu")
+        assert _close(score, e["score"]), (e["pair"], e["strand"])
+        assert mapping.dtype == torch.int32
+        assert mapping.tolist() == e["mapping"]
+        bpp = cf_base_pair_probs(S, n, device="cpu")
+        assert cf_mea(bpp, n, 6.0).tolist() == e["mea6"]
+        assert cf_mea(bpp, n, 1.0).tolist() == e["mea1"]
+    for key in ("allow", "helix"):
+        for e in short[key]:
+            S, n = encode(e["seq"], e["L"]), e["n"]
+            kw = (dict(allow=_allow(e)) if key == "allow" else
+                  dict(helix=cf_helix_features(e["length_at_least"],
+                                               e["isolated"])))
+            assert _close(cf_logz(S, n, device="cpu", **kw), e["logz"])
+            np.testing.assert_allclose(
+                *_top(cf_base_pair_probs(S, n, device="cpu", **kw),
+                      e["bpp_top"]), rtol=0, atol=1e-8)
+            score, mapping = cf_viterbi(S, n, device="cpu", **kw)
+            assert _close(score, e["score"]), (key, e["pair"])
+            assert mapping.tolist() == e["mapping"]
+    for e in short["loss"]:
+        S, n = encode(e["seq"], e["L"]), e["n"]
+        for r in e["runs"]:
+            aug, score, mapping = cf_loss_augmented_viterbi(
+                S, n, e["true"], r["fp"], r["fn"], device="cpu")
+            assert _close(aug, r["augmented"]) and _close(score, r["score"])
+            assert mapping.tolist() == r["mapping"]
+            assert _close(cf_margin(S, n, e["true"], r["fp"], r["fn"],
+                                    device="cpu"), r["margin"])
+    for e in short["samples"]:
+        got = cf_stochastic_traceback(encode(e["seq"], e["L"]), e["n"],
+                                      len(e["samples"]), seed=e["seed"],
+                                      device="cpu")
+        assert [m.tolist() for m in got] == e["samples"]
 
 
 def _golden(pair, flags):
@@ -121,3 +194,4 @@ def test_contrafold_matches_golden():
         got = [ee[k] for k in ("e1", "e2", "e3", "e1s", "e2s")]
         np.testing.assert_allclose(got, e["energies"], rtol=0, atol=1e-6)
         assert zs is None
+    _decode_matches_golden()

@@ -155,6 +155,14 @@ def test_port_never_imports_jax():
         from ractip_tpu_torch.utils.checkpoint import SweepCheckpoint
         from ractip_tpu_torch.io.fasta import Fasta
         from ractip_tpu_torch.pipeline.ractip import predict
+        from ractip_tpu_torch.ops.contrafold import (
+            cf_helix_features, cf_margin, cf_stochastic_traceback,
+            cf_viterbi)
+        from ractip_tpu_torch.solver.bnb import solve_joint
+        from ractip_tpu_torch.parallel.distributed import init_distributed
+        from ractip_tpu_torch.parallel.mesh import sharded_mean_var
+        from ractip_tpu_torch.entry import dryrun_multichip, entry
+        import runpy
         pair = [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")]
         for opts in (Options(), Options(use_pf_duplex=True)):
             r = predict_batch(get_default_params(), pair, opts, iters=100,
@@ -172,6 +180,21 @@ def test_port_never_imports_jax():
         assert evaluate_corpus(lambda a, b: ("." * len(a.seq),
                                              "." * len(b.seq)))["pooled"]
         assert callable(SweepCheckpoint.map_chunks)
+        S = [3, 3, 3, 1, 1, 1, 2, 2, 2]
+        h = cf_helix_features(isolated=-1.0)
+        assert cf_viterbi(S, 9, device="cpu", helix=h)[1].shape == (9,)
+        assert len(cf_stochastic_traceback(S, 9, 2, device="cpu")) == 2
+        assert float(cf_margin(S, 9, [-1] * 9, device="cpu")) >= 0
+        fn, ex = entry("cpu")
+        assert fn(*ex)[0].shape == (2,)
+        assert not init_distributed()
+        assert callable(solve_joint) and callable(sharded_mean_var)
+        assert callable(dryrun_multichip)
+        sys.argv = ["ractip_tpu_torch", "--help"]
+        try:
+            runpy.run_module("ractip_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "ractip_tpu"))
         assert not bad, bad
@@ -199,9 +222,20 @@ def test_device_cuda_without_gpu_raises():
     from ractip_tpu_torch.ops.contraduplex import cd_hybrid_probs
     from ractip_tpu_torch.ops.contrafold import cf_base_pair_probs
     from ractip_tpu_torch.pipeline.options import Options as TOptions
+    from ractip_tpu_torch.entry import entry
+    from ractip_tpu_torch.ops.contrafold import cf_viterbi
+    from ractip_tpu_torch.solver.bnb import solve_joint
+    from ractip_tpu_torch.solver.candidates import SolverConfig, build_problem
+    prob = build_problem(np.zeros((4, 4)), np.zeros((4, 4)),
+                         np.zeros((4, 4)), None, None, 4, 4,
+                         SolverConfig(min_w=0, max_w=0))
     for call in (lambda: cf_base_pair_probs([1, 2, 3, 4], 4),
                  lambda: cd_hybrid_probs([1, 2], [3, 4], 2, 2),
                  lambda: predict(TFasta("a", a), TFasta("b", b),
-                                 TOptions(use_contrafold=True))):
+                                 TOptions(use_contrafold=True)),
+                 lambda: cf_viterbi([1, 2, 3, 4], 4),
+                 lambda: solve_joint(prob, SolverConfig(min_w=0, max_w=0),
+                                     32, 32),
+                 lambda: entry()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

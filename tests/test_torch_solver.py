@@ -6,7 +6,16 @@ build_problem_device must be equal (slot order may differ on ties; the
 buckets are large enough that no block overflows, since at an overflowing
 bucket a near-tie of the f32 region scores decides the last slots), the
 PDHG LP objective and dual bound must agree to atol 1e-3 (f32 drift over
-the iterations), and the HiGHS certify step to 1e-6.
+the iterations), and the HiGHS certify step to 1e-6.  The port's
+branch-and-bound (solver/bnb.py, its node LPs on the CPU here) must reach
+the HiGHS optimum within 1e-4 on the same posteriors' problems without
+accessibility (a configuration of the JAX package's tests/test_milp.py;
+with accessibility on, its dive fixes the fractional region variables one
+LP at a time, ~1 minute a problem on this CPU, so the card holds that case:
+chip_smoke.py, phase `rest`), through solve_joint, exact_solve and the
+batched path's exact fallback under RACTIP_TPU_EXACT_BACKEND=bnb; the
+variable selects the backend as the JAX package's does (auto: HiGHS where
+scipy imports; another value raises its ValueError).
 
 The JAX half of every test runs in one child process (JAX on the CPU with
 x64, as tests/conftest.py sets it up), so the compile history of the
@@ -14,6 +23,7 @@ worker that runs these tests cannot reach the jaxlib compile-path crash
 that tests/conftest.py describes; tests/test_torch_fold.py does the same."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -27,6 +37,8 @@ from ractip_tpu_torch.ops.cofold import batch_cofold
 from ractip_tpu_torch.ops.scan import as_tables, batch_fold
 from ractip_tpu_torch.ops.seq import encode
 from ractip_tpu_torch.params.tables import get_default_params
+from ractip_tpu_torch.pipeline import batched
+from ractip_tpu_torch.solver import bnb as tbnb
 from ractip_tpu_torch.solver import device as tdev
 from ractip_tpu_torch.solver import joint_lp as tlp
 from ractip_tpu_torch.solver import milp as tmilp
@@ -115,8 +127,7 @@ def jax_ref(posteriors, tmp_path_factory):
     return dict(np.load(dst))
 
 
-def _problem(post):
-    cfg = SolverConfig()
+def _problem(post, cfg=SolverConfig()):
     return cfg, tdev.build_problem_device(*[torch.as_tensor(a) for a in post],
                                           cfg, BUCKETS)
 
@@ -146,7 +157,7 @@ def test_pdhg_objective_and_bound_match_jax(posteriors, jax_ref):
     np.testing.assert_allclose(bound.numpy(), jax_ref["bound"], atol=1e-3)
 
 
-def test_certify_or_solve_matches_jax(posteriors, jax_ref):
+def test_certify_or_solve_matches_jax(posteriors, jax_ref, monkeypatch):
     cfg, tp = _problem(posteriors)
     for b in range(B):
         p = type(tp)(*[t[b].numpy() for t in tp])
@@ -154,3 +165,35 @@ def test_certify_or_solve_matches_jax(posteriors, jax_ref):
         jobj, jbound = jax_ref["cert"][b]
         assert obj == pytest.approx(jobj, abs=1e-6)
         assert bound == pytest.approx(jbound, abs=1e-6)
+
+    cfg, tp = _problem(posteriors, SolverConfig(min_w=0, max_w=0))
+    probs = [type(tp)(*[t[b].numpy() for t in tp]) for b in range(B)]
+    exact = [tmilp.solve_joint_milp(p, cfg, L, L)[1] for p in probs]
+    kw = dict(iters=500, device="cpu")
+    for b, (p, want) in enumerate(zip(probs, exact)):
+        u, obj, _, nodes = tbnb.solve_joint(p, cfg, L, L, node_iters=100,
+                                            **kw)
+        assert obj == pytest.approx(want, abs=1e-4) and nodes >= 1
+        one = type(tp)(*[t[b:b + 1] for t in tp])
+        assert float(tlp.check_feasible(
+            one, cfg, L, L, tuple(torch.as_tensor(t)[None] for t in u))) < 0.5
+    monkeypatch.delenv("RACTIP_TPU_EXACT_BACKEND", raising=False)
+    assert tmilp._backend() == "milp"
+    monkeypatch.setenv("RACTIP_TPU_EXACT_BACKEND", "milp")
+    assert tmilp.exact_solve(probs[0], cfg, L, L, **kw)[1] == exact[0]
+    monkeypatch.setenv("RACTIP_TPU_EXACT_BACKEND", "bnb")
+    assert tmilp.exact_solve(probs[0], cfg, L, L, **kw)[1] == \
+        pytest.approx(exact[0], abs=1e-4)
+    # the batched path's fallback: a zero solution under a loose bound
+    zeros = tuple(torch.zeros_like(m) for m in (tp.xm, tp.ym, tp.zm, tp.vm,
+                                                tp.wm))
+    out = batched._to_host(dict(prob=tp, u=zeros, obj=torch.zeros(B),
+                                bound=torch.full((B,), 10.0),
+                                mv=torch.ones(B)))
+    out = batched._exact_fallback(out, cfg, L, L, 1e-4, 500, "cpu")
+    np.testing.assert_allclose(out["obj"], exact, atol=1e-4)
+    assert not out["mv"].any() and (out["bound"] < 10.0).all()
+    monkeypatch.setenv("RACTIP_TPU_EXACT_BACKEND", "foo")
+    with pytest.raises(ValueError, match=re.escape(
+            "RACTIP_TPU_EXACT_BACKEND='foo' (expected auto|milp|bnb)")):
+        tmilp.exact_solve(probs[0], cfg, L, L, **kw)
