@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (ractip_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(--only kernels,corpus,zscore,duplex,single,contrafold,rest runs a subset,
-for development; a subset run never prints the final ok line).
+(--only kernels,corpus,zscore,duplex,single,contrafold,rest,api runs a
+subset, for development; a subset run never prints the final ok line).
 
 Phases (each prints its own lines; the run exits 0 only if all pass):
   1. device   the card's name, and name + power limit from nvidia-smi;
@@ -76,7 +76,9 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               directory (the LP cut to 300 iterations), run again
               after two chunk files are deleted (z, zs and every decoy energy
               equal, only those two chunks' cofolds run again, K4 launches
-              equal to theirs) and with another chunk size (a fresh sweep);
+              equal to theirs), with another chunk size into the same
+              directory (ValueError, as the JAX package raises, and every
+              file left as it was) and into a new one (a fresh sweep);
               the pooled F-measure (evaluate_corpus) of the port's corpus
               brackets for the default model and for --contrafold, equal to
               that of the golden brackets;
@@ -103,11 +105,30 @@ Phases (each prints its own lines; the run exits 0 only if all pass):
               the rows, K1-K5 launched in each rank); entry("cuda") in a
               launch window of its own (K1-K5) and dryrun_multichip(2,
               "cuda");
- 10. counts   each path's kernels launched, the other model's kernels not,
+ 10. api      the single-call functions (ops/mccaskill.py fold,
+              log_partition, base_pair_probs; ops/accessibility.py
+              accessibility; ops/cofold.py cofold, cofold_hybrid_probs;
+              ops/duplex.py duplex, hybrid_probs) on CopA, on CopT and on
+              CopA x CopT, scale_e adapted and pinned, cofold_hybrid_probs
+              also at span_loop_penalty 0.5, each against the same call
+              with device="cpu" (the plain versions) at phase 3's
+              tolerances; every case of tests/data/torch_port_golden_api.npz
+              (tools/make_torch_api_golden.py, the JAX package's functions)
+              on the card at the CPU tests' tolerances; a 16-decoy CopA x
+              CopT z-score at chunk 16 (LP cut to 30 iterations, energies
+              against the JAX golden's first 16 decoys) under
+              utils/timing.profile_trace, which collects the decoy chunk
+              alone (the real pair's runs with its collection off): the
+              trace file, the K1-K5 kernels
+              named in it, the card's busy share over the decoy chunk with
+              the LP, its five longest device operations and StageTimer's
+              seconds and counts; PairRecords written and read back
+              (utils/records.py);
+ 11. counts   each path's kernels launched, the other model's kernels not,
               and no plain version on a CUDA tensor.  The counts are set to
               0 just before each path (phases 4-5, phase 6, phase 7, phase 8,
-              phase 9) and read just after it; the kernels line reports the
-              default and duplex paths' counts.
+              phase 9, phase 10) and read just after it; the kernels line
+              reports the default and duplex paths' counts.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -146,6 +167,7 @@ GOLDEN_SINGLE = ROOT / "tests" / "data" / "torch_port_golden_single.json"
 GOLDEN_CF = ROOT / "tests" / "data" / "torch_port_golden_contrafold.json"
 GOLDEN_DECODE = (ROOT / "tests" / "data"
                  / "torch_port_golden_contrafold_decode.json")
+GOLDEN_API = ROOT / "tests" / "data" / "torch_port_golden_api.npz"
 
 FOLD_B, FOLD_L = 512, 96
 CO_B, CO_L1, CO_L2, CO_CUT = 256, 96, 96, 70
@@ -203,7 +225,9 @@ PATHS = {"default": {"inside", "outside", "q2", "co_inside", "co_outside"},
                     "duplex_sweep"},
          "contrafold": {"inside", "outside", "q2", "co_inside", "co_outside",
                         "duplex_sweep"},
-         "rest": {"inside", "outside", "q2", "co_inside", "co_outside"}}
+         "rest": {"inside", "outside", "q2", "co_inside", "co_outside"},
+         "api": {"inside", "outside", "q2", "co_inside", "co_outside",
+                 "duplex_sweep"}}
 PEAK_FLOPS = 67e12        # FP32 without tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
 MAXLOOP = 30
@@ -1103,7 +1127,9 @@ class _CofoldCounts:
 
 def _cf_resume(run: Run) -> dict:
     """A 64-decoy batched z-score at chunk 16 into a checkpoint directory;
-    again after two chunk files are deleted; again at another chunk size."""
+    again after two chunk files are deleted; at another chunk size into the
+    same directory (it must raise and leave the files) and into a new one
+    (a fresh sweep)."""
     import shutil
     import numpy as np
     from ractip_tpu_torch.evaluate.corpus import record
@@ -1149,11 +1175,27 @@ def _cf_resume(run: Run) -> dict:
               f"and bracket equal: {same}), cofold runs with K4 launches "
               f"{k1} (the real pair's and chunks 1 and 3's of {k0}), chunks"
               f" 0 and 2 untouched: {untouched}; {s0:.2f} s, {s1:.2f} s")
+    # another chunk size is another workload: its sweep into this
+    # directory raises, as the JAX package's does, and leaves its files as
+    # they were; into a directory of its own it is a fresh sweep
+    before = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    try:
+        sweep(2 * CKPT_CHUNK)
+        raised = "nothing"
+    except ValueError as e:
+        raised = f"ValueError({e})"
+    after = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    run.check("contrafold", raised.startswith("ValueError(") and
+              "different workload" in raised and after == before,
+              f"chunk {2 * CKPT_CHUNK} into the chunk-{CKPT_CHUNK} directory:"
+              f" raised {raised}; its {len(before)} files untouched: "
+              f"{after == before}")
+    shutil.rmtree(d, ignore_errors=True)
     z2, zs2, _, k2, fp2, s2 = sweep(2 * CKPT_CHUNK)
     run.check("contrafold", fp2 != fp0 and len(k2) == n // 2 + 1,
-              f"chunk {2 * CKPT_CHUNK}: a fresh sweep (fingerprint {fp2} "
-              f"for {fp0}, {len(k2) - 1} chunks ran of {n // 2}), z {z2:.6f}"
-              f" zs {zs2:.6f}; {s2:.2f} s")
+              f"chunk {2 * CKPT_CHUNK} into a new directory: a fresh sweep "
+              f"(fingerprint {fp2} for {fp0}, {len(k2) - 1} chunks ran of "
+              f"{n // 2}), z {z2:.6f} zs {zs2:.6f}; {s2:.2f} s")
     shutil.rmtree(d, ignore_errors=True)
     return dict(z=z0, zs=zs0, k4=[k0, k1, k2], seconds=[s0, s1, s2])
 
@@ -1431,7 +1473,7 @@ def _rest_mesh(run: Run) -> dict:
     import numpy as np
     import torch.distributed as dist
     from ractip_tpu_torch import cli
-    from ractip_tpu_torch.entry import free_address, spawn_ranks
+    from ractip_tpu_torch.entry import rendezvous, spawn_ranks
     from ractip_tpu_torch.evaluate.corpus import record
     from ractip_tpu_torch.parallel.distributed import init_distributed
     from ractip_tpu_torch.parallel.mesh import scenario_mesh
@@ -1462,16 +1504,18 @@ def _rest_mesh(run: Run) -> dict:
     real, decoys = ref["rows"][0], ref["rows"][1:]
     runs = {"iii cli --mesh": [ref]}
     # (i): one rank under NCCL
-    init_distributed(free_address(), 1, 0, backend="nccl")
-    try:
-        runs["i nccl world 1"] = [_mesh_zscore(scenario_mesh())]
-    finally:
-        dist.destroy_process_group()
+    with rendezvous() as address:
+        init_distributed(address, 1, 0, backend="nccl")
+        try:
+            runs["i nccl world 1"] = [_mesh_zscore(scenario_mesh())]
+        finally:
+            dist.destroy_process_group()
     # (ii): two spawned ranks sharing the card under gloo
     t0 = time.perf_counter()
     for r in range(2):
         (OUT / f"mesh_rank{r}.json").unlink(missing_ok=True)
-    spawn_ranks(_mesh_rank, 2, (2, free_address()))
+    with rendezvous() as address:
+        spawn_ranks(_mesh_rank, 2, (2, address))
     runs["ii gloo world 2"] = [json.loads(
         (OUT / f"mesh_rank{r}.json").read_text()) for r in range(2)]
     spawn_s = time.perf_counter() - t0
@@ -1559,6 +1603,373 @@ def phase_rest(run: Run):
     run.record["rest"] = rec
 
 
+# the single-call functions (phase 10): the API golden's pinned scale
+# energy and its cases, case -> (function, input set, keyword arguments;
+# "allow": the set's mask), as tools/make_torch_api_golden.py wrote them
+API_SCALE_E = 160.0
+API_CASES = {
+    "fold_A": ("fold", "A", {}),
+    "fold_A_scale": ("fold", "A", {"scale_e": API_SCALE_E}),
+    "fold_A_allow": ("fold", "A", {"allow": True}),
+    "fold_B": ("fold", "B", {}),
+    "logz_A": ("log_partition", "A", {}),
+    "logz_B": ("log_partition", "B", {}),
+    "bpp_B": ("base_pair_probs", "B", {}),
+    "bpp_B_allow": ("base_pair_probs", "B", {"allow": True}),
+    "acc_A": ("accessibility", "A", {}),
+    "acc_A_scale_allow": ("accessibility", "A",
+                          {"scale_e": API_SCALE_E, "allow": True}),
+    "acc_B": ("accessibility", "B", {}),
+    "cofold_P": ("cofold", "P", {}),
+    "cofold_P_scale": ("cofold", "P", {"scale_e": API_SCALE_E}),
+    "cofold_P_allow": ("cofold", "P", {"allow": True}),
+    "hp_P": ("cofold_hybrid_probs", "P", {}),
+    "hp_P_span05": ("cofold_hybrid_probs", "P", {"span_loop_penalty": 0.5}),
+    "hp_P_spaninf": ("cofold_hybrid_probs", "P",
+                     {"span_loop_penalty": float("inf")}),
+    "cofactors_P": ("co_factors", "P", {}),
+    "duplex_P": ("duplex", "P", {}),
+    "hyb_P": ("hybrid_probs", "P", {}),
+}
+# the CPU tests' tolerances (rtol, atol) for each output of the API golden
+API_TOL = {"ins": (2e-5, 1e-30), "ob": (5e-5, 1e-25), "bpp": (5e-5, 1e-12),
+           "logz": (0.0, 2e-5), "pu": (1e-4, 1e-8), "hp": (5e-5, 1e-12),
+           "factors": (1e-6, 0.0), "pr": (0.0, 2e-5), "log_zd": (1e-5, 0.0)}
+API_DECOYS, API_CHUNK = 16, 16
+# the traced z-score's LP: 30 first-stage iterations (its second stage
+# runs 200 whatever the first's count); the profiler's cost grows with the
+# host's op count, ~1.6 GB of trace at 300 iterations, and these 16
+# decoys' brackets and energies are the golden's from 30 up
+TRACE_ITERS = 30
+# scale energies pinned near those the adaptive loop picks (185 for CopA
+# and CopT, 713 for CopA x CopT's cofold; at 185 that cofold saturates)
+PLAIN_SCALE_E = (170.0, 700.0)
+# K1-K5 as a trace names them: demangled, or mangled where it is not
+TRACE_KERNELS = {"inside": r"inside_kernel(<false|ILb0)",
+                 "co_inside": r"inside_kernel(<true|ILb1)",
+                 "outside": r"outside_kernel(<false|ILb0)",
+                 "co_outside": r"outside_kernel(<true|ILb1)",
+                 "q2": r"q2_kernel"}
+
+
+def _api_functions():
+    from ractip_tpu_torch.ops import accessibility as ta
+    from ractip_tpu_torch.ops import cofold as tc
+    from ractip_tpu_torch.ops import duplex as td
+    from ractip_tpu_torch.ops import mccaskill as tm
+    return dict(fold=tm.fold, log_partition=tm.log_partition,
+                base_pair_probs=tm.base_pair_probs,
+                accessibility=ta.accessibility, cofold=tc.cofold,
+                cofold_hybrid_probs=tc.cofold_hybrid_probs, duplex=td.duplex,
+                hybrid_probs=td.hybrid_probs)
+
+
+def _api_outputs(fn: str, r) -> dict:
+    """The named output tensors of one call of fn."""
+    if fn in ("fold", "cofold"):
+        ins, out = r
+        return {**{f"ins_{k}": v for k, v in ins._asdict().items()
+                   if k != "sat"}, "out_ob": out.ob, "out_bpp": out.bpp}
+    if fn == "duplex":
+        return {"pr": r.pr, "log_zd": r.log_zd}
+    key = {"log_partition": "logz", "base_pair_probs": "bpp",
+           "accessibility": "pu", "cofold_hybrid_probs": "hp",
+           "hybrid_probs": "pr"}[fn]
+    return {key: r}
+
+
+def _api_vs_plain(run: Run) -> dict:
+    """Every function on CopA, CopT and CopA x CopT on the card against the
+    same call on the CPU (the plain versions), at phase 3's tolerances."""
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.ops.seq import bucket_length, encode
+    from ractip_tpu_torch.params.tables import get_default_params
+    params = get_default_params()
+    fns = _api_functions()
+    strand = {}
+    for name in ("CopA", "CopT"):
+        seq = record(f"{name}.fa").seq
+        strand[name] = (encode(seq, bucket_length(len(seq))), len(seq))
+    pair = (strand["CopA"][0], strand["CopT"][0], strand["CopA"][1],
+            strand["CopT"][1])
+    calls = []
+    for name, (S, n) in strand.items():
+        for kw in ({}, {"scale_e": PLAIN_SCALE_E[0]}):
+            calls += [("fold", name, (S, n), kw),
+                      ("accessibility", name, (S, n, 15), kw)]
+        calls += [("log_partition", name, (S, n), {}),
+                  ("base_pair_probs", name, (S, n), {})]
+    for kw in ({}, {"scale_e": PLAIN_SCALE_E[1]}):
+        calls.append(("cofold", "CopA x CopT", pair, kw))
+    for kw in ({}, {"span_loop_penalty": 0.5}):
+        calls.append(("cofold_hybrid_probs", "CopA x CopT", pair, kw))
+    calls += [("duplex", "CopA x CopT", pair, {}),
+              ("hybrid_probs", "CopA x CopT", pair, {})]
+    rows = []
+    for fn, on, args, kw in calls:
+        t0 = time.perf_counter()
+        got = _api_outputs(fn, fns[fn](params, *args, device="cuda", **kw))
+        t1 = time.perf_counter()
+        want = _api_outputs(fn, fns[fn](params, *args, device="cpu", **kw))
+        t2 = time.perf_counter()
+        worst = {}
+        for k, a in got.items():
+            ab, rl, nk, np_ = diff(a.detach().cpu(), want[k])
+            if k in ("out_bpp", "pu", "hp"):          # probabilities
+                ok = ab <= TOL_PROB and nk + np_ == 0
+            elif k == "pr":                           # duplex posteriors
+                ok = ab <= TOL_DUPLEX_PR and nk + np_ == 0
+            elif k == "log_zd":
+                ok = ab <= TOL_DUPLEX_LOGZ[0] * abs(float(want[k])) \
+                    + TOL_DUPLEX_LOGZ[1]
+            elif k == "logz":                         # ln of zn's relative
+                ok = ab <= TOL_STATE
+            else:                                     # DP tables, ob
+                ok = rl <= TOL_STATE
+            worst[k] = dict(max_abs=ab, max_rel=rl, ok=bool(ok))
+        bad = [k for k, v in worst.items() if not v["ok"]]
+        run.check("api", not bad,
+                  f"{fn} {on} {kw or ''}: card vs plain, outputs "
+                  + ", ".join(f"{k} abs {v['max_abs']:.2e} rel "
+                              f"{v['max_rel']:.2e}" for k, v in worst.items())
+                  + (f"; out of tolerance: {bad}" if bad else "")
+                  + f"; {t1 - t0:.3f} s card, {t2 - t1:.3f} s CPU")
+        rows.append(dict(fn=fn, on=on, kw={k: float(v) for k, v in
+                                            kw.items()},
+                         worst=worst, card_s=t1 - t0, cpu_s=t2 - t1))
+    return rows
+
+
+def _api_golden(run: Run) -> dict:
+    """Every case of the API golden (the JAX package's functions) on the
+    card, at the CPU tests' tolerances: the worst |got - want| / (atol +
+    rtol |want|) of each case must be at most 1."""
+    import numpy as np
+    import torch
+    from ractip_tpu_torch.ops.factors import co_factors
+    from ractip_tpu_torch.ops.scan import as_tables
+    from ractip_tpu_torch.params.tables import get_default_params
+    params = get_default_params()
+    fns = _api_functions()
+    with np.load(GOLDEN_API) as z:
+        gold = {k: z[k] for k in z.files}
+    out = {}
+    for case, (fn, which, kw) in API_CASES.items():
+        x = {k.split("__")[1]: v for k, v in gold.items()
+             if k.startswith(which + "__")}
+        kw = dict(kw)
+        if kw.pop("allow", False):
+            kw["allow"] = x["allow"]
+        if fn == "co_factors":
+            tt = as_tables(params, "cuda")
+            n1, n2 = int(x["n1"]), int(x["n2"])
+            S = torch.as_tensor(gold[f"{case}__S"], device="cuda").long()
+            got = {}
+            for tag, pen in (("none", None), ("span05", 0.5),
+                             ("spaninf", float("inf"))):
+                ff = co_factors(tt, S[None], torch.tensor([n1 + n2],
+                                                          device="cuda"),
+                                torch.tensor([n1], device="cuda"),
+                                torch.full((1,), tt.bt.sigma,
+                                           device="cuda"),
+                                span_loop_penalty=pen)
+                got.update({f"{tag}_{k}": v[0] for k, v in
+                            ff._asdict().items()})
+        else:
+            args = ((x["S"], int(x["n"])) if which in ("A", "B") else
+                    (x["S1"], x["S2"], int(x["n1"]), int(x["n2"])))
+            if fn == "accessibility":
+                args += (15,)
+            got = _api_outputs(fn, fns[fn](params, *args, device="cuda",
+                                           **kw))
+        worst = 0.0
+        for k, a in got.items():
+            want = gold[f"{case}__{k}"]
+            group = ("factors" if fn == "co_factors" else
+                     "ins" if k.startswith("ins_") else k.split("_", 1)[-1]
+                     if k.startswith("out_") else k)
+            rtol, atol = API_TOL[group]
+            a = np.asarray(a.detach().cpu(), np.float64)
+            w = np.asarray(want, np.float64)
+            if not np.isfinite(a).all():
+                worst = float("inf")
+                continue
+            num, den = np.abs(a - w), atol + rtol * np.abs(w)
+            ratio = np.where(num == 0, 0.0, num / np.where(den > 0, den, 1.0))
+            ratio = np.where((num > 0) & (den == 0), np.inf, ratio)
+            worst = max(worst, float(ratio.max()))
+        out[case] = worst
+        run.check("api", worst <= 1.0, f"golden {case} ({fn}) on the card: "
+                  f"worst |got - JAX| / (atol + rtol |JAX|) {worst:.3f}")
+    return out
+
+
+def _trace_scan(path, patterns: dict) -> dict:
+    """Which of the patterns occur in the (large) trace file, read in
+    chunks."""
+    found, tail = {k: False for k in patterns}, b""
+    with open(path, "rb") as fh:
+        while not all(found.values()):
+            block = fh.read(1 << 24)
+            if not block:
+                break
+            text = (tail + block).decode("utf-8", "replace")
+            for k, p in patterns.items():
+                found[k] = found[k] or re.search(p, text) is not None
+            tail = block[-256:]
+    return found
+
+
+def _device_window(events, t0: int, t1: int):
+    """(busy ns, {name: [calls, ns]}) of the device events in [t0, t1]."""
+    busy, per = 0, {}
+    for e in events:
+        s, d = e.start_ns(), e.duration_ns()
+        if s >= t1 or s + d <= t0:
+            continue
+        ov = min(s + d, t1) - max(s, t0)
+        busy += ov
+        row = per.setdefault(e.name(), [0, 0])
+        row[0] += 1
+        row[1] += ov
+    return busy, per
+
+
+def _api_traced_zscore(run: Run) -> dict:
+    """The 16-decoy CopA x CopT z-score at chunk 16 (LP cut to TRACE_ITERS
+    iterations) under profile_trace, with a StageTimer; the profiler
+    collects the decoy chunk alone (the real pair's chunk runs with its
+    collection off).  Records written and read back."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from ractip_tpu_torch.evaluate.corpus import record
+    from ractip_tpu_torch.params.tables import get_default_params
+    from ractip_tpu_torch.pipeline.batched import zscore_batch
+    from ractip_tpu_torch.pipeline.options import Options
+    from ractip_tpu_torch.utils import (PairRecord, StageTimer,
+                                        profile_trace, read_records,
+                                        write_records)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    class DecoysTraced(StageTimer):
+        """Turns the profiler's collection on when the real pair's chunk
+        closes its "decode" stage, its last (one a chunk)."""
+        prof = None
+
+        @contextlib.contextmanager
+        def __call__(self, stage: str):
+            with super().__call__(stage) as t:
+                yield t
+            if stage == "decode" and self.prof is not None:
+                torch.cuda.synchronize()
+                self.prof.toggle_collection_dynamic(True, acts)
+                self.prof = None
+
+    fa1, fa2 = record("CopA.fa"), record("CopT.fa")
+    timer = DecoysTraced("cuda")
+    with tempfile.TemporaryDirectory(prefix="api_trace_") as tmp:
+        t0 = time.perf_counter()
+        with profile_trace(tmp) as prof:
+            prof.toggle_collection_dynamic(False, acts)
+            timer.prof = prof
+            z, zs, st = zscore_batch(
+                fa1, fa2, Options(zscore=12, num_shuffling=API_DECOYS,
+                                  seed=1), get_default_params(),
+                chunk=API_CHUNK, iters=TRACE_ITERS, timer=timer,
+                device="cuda")
+            run_s = time.perf_counter() - t0
+        traced_s = time.perf_counter() - t0
+        traces = sorted(Path(tmp).glob("*.pt.trace.json"))
+        t1 = time.perf_counter()
+        found = _trace_scan(traces[0], TRACE_KERNELS) if traces else {}
+        size = traces[0].stat().st_size if traces else 0
+        scan_s = time.perf_counter() - t1
+    # one pass over the raw events (building the profiler's FunctionEvents
+    # for ~10^6 of them takes minutes): the chunk's mark on the host (it
+    # lasts seconds: no other host event's name is read), and the device's
+    # kernels, copies and sets (not its copy of the mark)
+    t1 = time.perf_counter()
+    mark = "predict_batch.chunk"
+    chunks, dev = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if e.name() != mark:
+                dev.append(e)
+        elif e.duration_ns() > 10**8 and e.name() == mark:
+            chunks.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    chunks.sort()
+    w0, w1 = chunks[-1] if chunks else (0, 0)
+    busy, per = _device_window(dev, w0, w1)
+    all_busy = sum(e.duration_ns() for e in dev)
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
+    events_s = time.perf_counter() - t1
+    share = busy / max(w1 - w0, 1)
+    gold = golden_zscore("default", 64)
+    de = float(np.max(np.abs(np.subtract(st["decoy_e"],
+                                         gold["decoy_e"][:API_DECOYS]))))
+    des = float(np.max(np.abs(np.subtract(st["decoy_es"],
+                                          gold["decoy_es"][:API_DECOYS]))))
+    run.check("api", len(traces) == 1 and size > 0,
+              f"profile_trace wrote {[p.name for p in traces]} "
+              f"({size / 1e6:.1f} MB) in {traced_s:.2f} s for the traced "
+              f"z-score ({run_s:.2f} s of it the profiled run, the rest the "
+              f"profiler's stop and the export; scanned in {scan_s:.2f} s)")
+    run.check("api", bool(found) and all(found.values()),
+              f"the trace names K1-K5: {found}")
+    run.check("api", len(chunks) == 1 and busy > 0 and np.isfinite(z)
+              and np.isfinite(zs) and de <= TOL_DECOY_E
+              and des <= TOL_DECOY_E
+              and tuple(st["brackets"]) == tuple(gold["brackets"]),
+              f"16-decoy z-score z {z:.6f} zs {zs:.6f}; brackets, decoy "
+              f"energies against the JAX golden's first 16 (max diff "
+              f"{de:.2e}, {des:.2e}; tol {TOL_DECOY_E:g}); decoy chunk "
+              f"{(w1 - w0) / 1e6:.2f} ms, the card busy {busy / 1e6:.2f} ms"
+              f" = {100 * share:.2f} % of it (LP included); all device "
+              f"events {all_busy / 1e6:.2f} ms; events read in "
+              f"{events_s:.2f} s")
+    say("  five longest device operations of the decoy chunk:")
+    for name, (calls, ns) in top:
+        say(f"    {ns / 1e6:9.3f} ms  {calls:7d}  {name[:100]}")
+    say(f"  StageTimer seconds {timer.json()}")
+    say(f"  StageTimer counts {json.dumps(timer.counts)}")
+    rec = PairRecord(fa1.name, fa2.name, fa1.seq, fa2.seq, *st["brackets"],
+                     zscore=(float(z), float(zs)), timings=timer.report(),
+                     extra=dict(decoys=API_DECOYS, busy_share=share))
+    path = OUT / "api_records.jsonl"
+    OUT.mkdir(exist_ok=True)
+    write_records(str(path), [rec])
+    back = read_records(str(path))
+    run.check("api", back == [rec], f"PairRecord written and read back "
+              f"through read_records: {back == [rec]}")
+    return dict(z=z, zs=zs, traced_s=traced_s, run_s=run_s,
+                trace_mb=size / 1e6,
+                kernels_named=found, chunk_ms=(w1 - w0) / 1e6,
+                busy_ms=busy / 1e6, busy_share=share,
+                device_ms_all=all_busy / 1e6,
+                top=[dict(name=n[:120], calls=c, ms=ns / 1e6)
+                     for n, (c, ns) in top],
+                stage_seconds=timer.report(), stage_counts=timer.counts,
+                events_s=events_s)
+
+
+def phase_api(run: Run):
+    """The single-call functions, the API golden, a traced z-score and the
+    records (phase 10)."""
+    rec, secs = {}, {}
+    for name, fn in (("plain", _api_vs_plain), ("golden", _api_golden),
+                     ("traced", _api_traced_zscore)):
+        t0 = time.perf_counter()
+        rec[name] = fn(run)
+        secs[name] = time.perf_counter() - t0
+        say(f"  {name}: {secs[name]:.1f} s")
+    rec["seconds"] = secs
+    run.record["api"] = rec
+
+
 def count_path(run: Run, window: str, path: str, launches: dict,
                plain: dict) -> None:
     """The path's kernels launched, the others not, no plain version on a
@@ -1576,7 +1987,7 @@ def count_path(run: Run, window: str, path: str, launches: dict,
 def main() -> int:
     import argparse
     phases = {"kernels", "corpus", "zscore", "duplex", "single",
-              "contrafold", "rest"}
+              "contrafold", "rest", "api"}
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--only", default=",".join(sorted(phases)),
                     help="comma list of phases after the build: "
@@ -1597,7 +2008,8 @@ def main() -> int:
         bail(f"the port is not next to this script ({e})")
     if Path(ractip_tpu_torch.__file__).resolve().parent.parent != ROOT:
         bail("ractip_tpu_torch was not imported from this checkout")
-    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE, GOLDEN_CF, GOLDEN_DECODE):
+    for g in (GOLDEN, GOLDEN_DUPLEX, GOLDEN_SINGLE, GOLDEN_CF, GOLDEN_DECODE,
+              GOLDEN_API):
         if not g.exists():
             bail(f"missing {g.relative_to(ROOT)}")
     from ractip_tpu_torch.ops import _cuda
@@ -1642,8 +2054,10 @@ def main() -> int:
                     [("8 contrafold", phase_contrafold)])
         if "rest" in only:
             counted("rest", "rest", [("9 rest", phase_rest)])
+        if "api" in only:
+            counted("api", "api", [("10 api", phase_api)])
         if counts:
-            say("== 10 launch counts")
+            say("== 11 launch counts")
             for window, (path, launches, plain) in counts.items():
                 count_path(run, window, path, launches, plain)
         run.record["launches"] = {k: v[1] for k, v in counts.items()}

@@ -15,8 +15,10 @@ dryrun_multichip(n, device) -- runs predict_batch with an n-rank scenario
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
-import socket
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -102,11 +104,13 @@ def _dryrun_child(rank: int, n: int, address: str, backend: str,
         dist.destroy_process_group()
 
 
-def free_address() -> str:
-    """localhost:<a free port> for a spawned process group's rendezvous."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return f"localhost:{s.getsockname()[1]}"
+@contextlib.contextmanager
+def rendezvous():
+    """file:// address of a rendezvous file in a fresh temporary directory
+    (removed on exit) for a process group of this host: the ranks meet in
+    the file, so no port is chosen before they bind it."""
+    with tempfile.TemporaryDirectory(prefix="ractip_rendezvous_") as d:
+        yield "file://" + os.path.join(d, "store")
 
 
 def spawn_ranks(target, n: int, args=(), timeout: float = SPAWN_TIMEOUT):
@@ -141,6 +145,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         _dryrun_rank(dev)
         return
     nccl = dev.type == "cuda" and torch.cuda.device_count() >= n_devices
-    spawn_ranks(_dryrun_child, n_devices,
-                (n_devices, free_address(), "nccl" if nccl else "gloo",
-                 dev.type))
+    with rendezvous() as address:
+        spawn_ranks(_dryrun_child, n_devices,
+                    (n_devices, address, "nccl" if nccl else "gloo",
+                     dev.type))

@@ -5,6 +5,7 @@ Port of ractip_tpu/ops/accessibility.py::unpaired_probs, batched: pu[b, a, w]
 0 unused), summed over the exterior (E), hairpin (H), interior (I) and
 multiloop (M) contexts of the window, exactly as the JAX version does.  Its
 bilinear chains are plain matrix products outside any kernel (torch.matmul).
+accessibility is the single-strand call (ractip_tpu/ops/accessibility.py:205).
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ import torch
 
 from ..constants import MAXLOOP
 
+from ..device import resolve
 from ..params.boltz import W, TorchTables, sig_tables
+from .mccaskill import fold_one
+from .scan import as_tables, batch1
 
 
 def _shift_cols(M: torch.Tensor, k: int) -> torch.Tensor:
@@ -151,3 +155,17 @@ def unpaired_probs(tt: TorchTables, ff, ins: dict, ob: torch.Tensor,
 
     pu = puE + puH + puI + puM
     return torch.where(in_range, pu, zero)
+
+
+def accessibility(params, S, n, max_w: int, dtype=torch.float32,
+                  scale_e=None, allow=None, device="cuda") -> torch.Tensor:
+    """pu [L, max_w+1] of one strand: pu[a, w] = P(window a .. a+w-1
+    unpaired), w in 1..max_w, from its fold's tables (K1-K3 on a card).
+    Port of ractip_tpu/ops/accessibility.py::accessibility: S [L] codes, n
+    its length, scale_e pins the scale energy (else adaptive), allow the
+    -c pair mask [L, L]."""
+    tt = as_tables(params, resolve(device), dtype)
+    r = fold_one(tt, S, n, tt.device, dtype, scale_e, allow)
+    nt, = batch1(tt.device, n)
+    return unpaired_probs(tt, r["ff"], r["ins"], r["ob"], nt, max_w,
+                          r["sig"])[0]

@@ -18,6 +18,7 @@ It runs the plain PyTorch version (sweep_plain) when the factors lie on the
 CPU, and launches the CUDA kernel, both directions in one launch, when they
 lie on a GPU.  The posteriors tail (log Z, the log-space product of the two
 sweeps) is plain tensor code, as it is outside any kernel in the JAX package.
+duplex and hybrid_probs are the single-pair calls (ops/duplex.py:268, :303).
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ import torch
 import torch.nn.functional as tnf
 
 from ..constants import MAXLOOP
+from ..device import resolve
 from ..params.boltz import TorchTables
 from . import _cuda
-from .scan import _on_cpu
+from .scan import _on_cpu, as_tables, batch1
 
 W = MAXLOOP + 1
 
@@ -284,3 +286,22 @@ def batch_duplex(tt: TorchTables, S1, S2, n1, n2) -> DuplexResult:
     fbk = duplex_factors_bk(tt, S1, S2, n1, n2)
     (fw, lfw), (bk, lbk) = sweep(tt, ffw, fbk, n1, n2)
     return posteriors(fw, lfw, bk, lbk, ffw.close)
+
+
+def duplex(params, S1, S2, n1, n2, dtype=torch.float32,
+           device="cuda") -> DuplexResult:
+    """Duplex posteriors of one pair on `device`: DuplexResult(pr [L1, L2],
+    log_zd), K6 on a card.  Port of ractip_tpu/ops/duplex.py::duplex; its
+    use_pallas and pallas_interpret have no counterpart here: the tensors'
+    device chooses the kernel (CUDA) or its plain version (CPU)."""
+    dev = resolve(device)
+    tt = as_tables(params, dev, dtype)
+    r = batch_duplex(tt, *batch1(dev, S1, S2, n1, n2))
+    return DuplexResult(pr=r.pr[0], log_zd=r.log_zd[0])
+
+
+def hybrid_probs(params, S1, S2, n1, n2, dtype=torch.float32,
+                 device="cuda") -> torch.Tensor:
+    """[L1, L2] duplex pair posteriors (the reference's hp_ under
+    --duplex)."""
+    return duplex(params, S1, S2, n1, n2, dtype, device).pr

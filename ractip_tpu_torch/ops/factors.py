@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..constants import TURN
@@ -173,13 +174,19 @@ def fold_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
 
 
 def co_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
-               cut: torch.Tensor, sig: torch.Tensor, allow=None) -> CoFactors:
+               cut: torch.Tensor, sig: torch.Tensor, allow=None,
+               span_loop_penalty: float | None = None) -> CoFactors:
     """Cut-aware CoFactors of concatenations S = s1[:n1] ++ s2, cut = n1.
 
     A loop stretch i..k (junctions included) must not cross the cut unless
     hidden inside a nested pair: forbidden iff i < cut <= k.  allow
     (optional bool [B, Lc, Lc]) is the -c mask in concatenation
-    coordinates (strand-2 base j at n1 + j)."""
+    coordinates (strand-2 base j at n1 + j).  span_loop_penalty (kcal/mol,
+    the JAX package's experimental probe, ractip_tpu/ops/cofold.py:93-99,
+    :169-183) multiplies every two-sided loop (stack, bulge, interior) and
+    the tau and mout factors of a pair whose closing pair spans the cut by
+    exp(-penalty / kT); np.inf forbids them.  None leaves every factor as
+    it is."""
     c = _Ctx(tt, S, sig, allow)
     n = n.to(tt.device)[:, None, None]
     ct = cut.to(tt.device)[:, None, None]
@@ -202,5 +209,15 @@ def co_factors(tt: TorchTables, S: torch.Tensor, n: torch.Tensor,
                       * torch.where(I + 1 < ct, d3[rt, c.si1], one)
                       * torch.where(J - 1 >= ct, d5[rt, c.sj1], one)
                       * c.sig ** 2, z)
-    return CoFactors(fhn=c.hairpin(tv & same), **c.specials(gate),
-                     **c.loop_sides(), fe=fe, fcx=fcx)
+    sp, sides = c.specials(gate), c.loop_sides()
+    if span_loop_penalty is not None:
+        # kt is in cal/mol (params.boltz); the penalty in kcal/mol
+        pen = tt.scalar(float(np.exp(-span_loop_penalty * 1000.0
+                                     / tt.bt.kt)))
+        span_cl = ((I < ct) & (ct <= J)).to(tt.dtype)
+        sc = span_cl * pen + (1.0 - span_cl)
+        sp = {k: v * sc for k, v in sp.items()}
+        sides["tau"] = sides["tau"] * sc
+        sides["mout"] = sides["mout"] * sc
+    return CoFactors(fhn=c.hairpin(tv & same), **sp, **sides, fe=fe,
+                     fcx=fcx)

@@ -347,6 +347,12 @@ def on_device(a, dev, dtype) -> torch.Tensor:
                            device=dev).to(dtype)
 
 
+def batch1(dev, *arrays) -> list[torch.Tensor]:
+    """One instance's codes and lengths as long tensors on dev, each with a
+    batch axis of 1 in front ([L] -> [1, L], a length -> [1])."""
+    return [on_device(a, dev, torch.long)[None] for a in arrays]
+
+
 def lengths(n):
     """The kernels' lengths argument: n [B] as contiguous int32 (or None)."""
     return None if n is None else n.to(torch.int32).contiguous()

@@ -39,7 +39,9 @@ def init_distributed(address: str | None = None,
     """Join the process group from the arguments or torchrun's environment
     (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK).
 
-    address is "host:port" of rank 0.  Returns True once this process is in
+    address is "host:port" of rank 0's store, or a URL such as
+    "file:///dir/store" (entry.rendezvous: a file all ranks of one host
+    share).  Returns True once this process is in
     a process group, False (doing nothing) where no multi-process launch is
     configured (no address and no MASTER_ADDR), so callers can take the
     same path either way.  Idempotent.  With NCCL each rank drives the card
@@ -58,6 +60,7 @@ def init_distributed(address: str | None = None,
         local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
-    dist.init_process_group(backend, init_method=f"tcp://{address}",
+    url = address if "://" in address else f"tcp://{address}"
+    dist.init_process_group(backend, init_method=url,
                             world_size=world_size, rank=rank)
     return True

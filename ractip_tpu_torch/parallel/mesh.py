@@ -1,14 +1,16 @@
 """Scenario sharding over the ranks of a torch.distributed process group.
 
-Port of ractip_tpu/parallel/mesh.py (scenario_mesh :31, pad_to_mesh :46,
-shard_scenarios :52, sharded_mean_var :58).  The reference re-runs its batch
+Port of ractip_tpu/parallel/mesh.py (SCENARIO_AXES :28, scenario_mesh :31,
+scenario_sharding :41, pad_to_mesh :46, shard_scenarios :52,
+sharded_mean_var :58).  The reference re-runs its batch
 workloads (1000-decoy z-score loops, corpus sweeps) one after another on one
 thread (reference src/ractip.cpp:1494); every instance's pipeline is
 independent, so the scenario axis splits cleanly over devices.  The JAX
 package shards it over a two-axis ("pairs", "replicates") jax.sharding.Mesh
 whose split only places the shards on the TPU's interconnect; the math is
 identical (its :13-16).  Here the mesh is one flat scenario axis over the
-ranks, one process a card: each rank runs a contiguous share of every
+ranks, one process a card (SCENARIO_AXES keeps the JAX package's two
+names for it): each rank runs a contiguous share of every
 chunk, the shares are gathered so that every rank holds the whole result,
 and the z-score's mean and variance come from one all-reduce.
 """
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+SCENARIO_AXES = ("pairs", "replicates")
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -31,12 +35,6 @@ class Mesh:
     rank: int
     group: object = None
 
-    def share(self, B: int) -> slice:
-        """This rank's contiguous rows of a B-row axis (B a multiple of
-        size)."""
-        per = B // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
-
 
 def scenario_mesh(group=None) -> Mesh:
     """The mesh over the ranks of `group` (init_distributed() first)."""
@@ -46,28 +44,59 @@ def scenario_mesh(group=None) -> Mesh:
     return Mesh(dist.get_world_size(group), dist.get_rank(group), group)
 
 
+def scenario_sharding(mesh: Mesh):
+    """This rank's placement of a leading scenario axis: B -> the slice of
+    its contiguous rows (B a multiple of the mesh size)."""
+    def rows(B: int) -> slice:
+        per = B // mesh.size
+        return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return rows
+
+
 def pad_to_mesh(B: int, mesh: Mesh) -> int:
     """Scenario count padded up to a multiple of the mesh size."""
     n = mesh.size
     return ((B + n - 1) // n) * n
 
 
+def _same_tuple(like: tuple, vals: list) -> tuple:
+    """vals as a tuple of like's type (a NamedTuple keeps its type)."""
+    return type(like)(*vals) if hasattr(like, "_fields") else tuple(vals)
+
+
+def map_tree(fn, tree):
+    """fn over the leaves of a tree of dicts, tuples and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return _same_tuple(tree, [map_tree(fn, v) for v in tree])
+    return fn(tree)
+
+
 def shard_scenarios(tree, mesh: Mesh):
     """This rank's share of every [B, ...] leaf (an array, a tensor or a
-    list) of a dict or tuple of them (B a multiple of the mesh size)."""
-    if isinstance(tree, dict):
-        return {k: shard_scenarios(v, mesh) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(shard_scenarios(v, mesh) for v in tree)
-    return tree[mesh.share(len(tree))]
+    list) of a tree of them (B a multiple of the mesh size)."""
+    rows = scenario_sharding(mesh)
+    return map_tree(lambda t: t[rows(len(t))], tree)
 
 
-def gather_scenarios(part: dict, mesh: Mesh) -> dict:
-    """Every rank's share of a dict of numpy [b, ...] arrays, concatenated
-    in rank order on every rank (the inverse of shard_scenarios)."""
+def _concat(parts: list):
+    """Leafwise concatenation of same-shaped trees of numpy arrays."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts]) for k in first}
+    if isinstance(first, tuple):
+        return _same_tuple(first, [_concat(list(z)) for z in zip(*parts)])
+    return np.concatenate(parts)
+
+
+def gather_scenarios(part, mesh: Mesh):
+    """Every rank's share of a tree (dicts, tuples, NamedTuples) of numpy
+    [b, ...] arrays, concatenated in rank order on every rank (the inverse
+    of shard_scenarios)."""
     parts = [None] * mesh.size
     dist.all_gather_object(parts, part, group=mesh.group)
-    return {k: np.concatenate([p[k] for p in parts]) for k in part}
+    return _concat(parts)
 
 
 def _comm_device(mesh: Mesh) -> torch.device:

@@ -9,9 +9,10 @@ chunks.  On resume, chunks whose files exist are loaded and the others run.
 Every file is written atomically (a temporary file, then a rename), so a
 killed run never leaves a half-written chunk or manifest behind.
 
-Unlike the JAX package, which raises on a directory of another workload,
-a manifest of another fingerprint, or one that cannot be read, starts the
-sweep fresh: its chunks are not reused.
+As in the JAX package, a directory that holds another workload's
+manifest (another fingerprint) raises ValueError, and a manifest that
+cannot be read raises json.JSONDecodeError: neither starts the sweep
+afresh, so a mistyped directory never loses a finished sweep's files.
 """
 
 from __future__ import annotations
@@ -31,13 +32,14 @@ class SweepCheckpoint:
         os.makedirs(directory, exist_ok=True)
         self.manifest_path = os.path.join(directory, "MANIFEST.json")
         self.manifest = {"fingerprint": fingerprint, "chunks": {}}
-        try:
+        if os.path.exists(self.manifest_path):
             with open(self.manifest_path) as f:
                 old = json.load(f)
-        except (OSError, ValueError):
-            return                      # none, or unreadable: start fresh
-        if (isinstance(old, dict) and isinstance(old.get("chunks"), dict)
-                and old.get("fingerprint") in ("", fingerprint)):
+            if fingerprint and old.get("fingerprint") not in ("", fingerprint):
+                raise ValueError(
+                    f"checkpoint dir {directory} belongs to a different "
+                    f"workload (fingerprint {old.get('fingerprint')!r} != "
+                    f"{fingerprint!r})")
             self.manifest = old
             self.manifest["fingerprint"] = fingerprint
 

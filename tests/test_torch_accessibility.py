@@ -2,28 +2,31 @@
 
 pu from the port's batch_fold tables is held against the JAX unpaired_probs
 driven by the JAX Pallas batch_fold (interpret mode), to rtol 1e-4 / atol
-1e-8 (tests/test_scan_pallas.py's tolerance).  An f64 case pins the DIS
+1e-8 (tests/test_scan_pallas.py's tolerance); the JAX half is read from
+tests/data/torch_port_golden_accessibility.npz (tools/
+make_torch_test_golden.py), once the seeded inputs are seen to equal the
+stored ones.  The single-strand call accessibility (scale_e adapted and
+pinned, under an allow mask) is held at the same tolerance against the JAX
+package's in tests/data/torch_port_golden_api.npz.  An f64 case pins the DIS
 knife edge: up([10,22], w=13) = 0.0037724019032320, the value the f64
 constrained-ensemble cross-check measured (tests/test_dis_golden.py)."""
 
-import jax
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from ractip_tpu.evaluate.corpus import data_dir_default
 from ractip_tpu.io.fasta import load_fasta
-from ractip_tpu.ops import mccaskill as mc
-from ractip_tpu.ops import scan_pallas as sp
-from ractip_tpu.ops.accessibility import unpaired_probs as jax_unpaired
 from ractip_tpu.ops.seq import bucket_length, encode
-from ractip_tpu.params.boltz import get_boltz
 from ractip_tpu.params.tables import get_default_params
-from ractip_tpu_torch.ops.accessibility import unpaired_probs
+from ractip_tpu_torch.ops.accessibility import accessibility, unpaired_probs
 from ractip_tpu_torch.ops.scan import as_tables, batch_fold
 
 torch.set_num_threads(2)
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 @pytest.fixture(scope="module")
@@ -37,19 +40,27 @@ def test_unpaired_probs_match_jax(params):
     n = rng.integers(20, L + 1, B).astype(np.int32)
     S = np.stack([encode("".join(rng.choice(list("ACGU"), m)), L)
                   for m in n]).astype(np.int32)
-    bt = get_boltz(params)
-    res = sp.batch_fold(params, jnp.asarray(S), jnp.asarray(n), b_blk=4,
-                        interpret=True)
-    ref = jax.vmap(lambda ff, ins, ob, sig, m: jax_unpaired(
-        ff, bt, ins, mc.OutsideState(ob=ob, bpp=ob), m, max_w, jnp.float32,
-        sig))(res["ff"], res["ins"], res["ob"], res["sig"], jnp.asarray(n))
+    gold = np.load(os.path.join(DATA, "torch_port_golden_accessibility.npz"))
+    np.testing.assert_array_equal(S, gold["S"])
+    np.testing.assert_array_equal(n, gold["n"])
+    assert max_w == int(gold["max_w"])
     r = batch_fold(params, S, n, device="cpu")
     tt = as_tables(params, "cpu")
     pu = unpaired_probs(tt, r["ff"], r["ins"], r["ob"],
                         torch.from_numpy(n).long(), max_w, r["sig"])
     assert pu.shape == (B, L, max_w + 1)
-    np.testing.assert_allclose(pu.numpy(), np.asarray(ref), rtol=1e-4,
-                               atol=1e-8)
+    np.testing.assert_allclose(pu.numpy(), gold["pu"], rtol=1e-4, atol=1e-8)
+
+    api = np.load(os.path.join(DATA, "torch_port_golden_api.npz"))
+    for case, name, kw in (("acc_A", "A", {}),
+                           ("acc_A_scale_allow", "A",
+                            {"scale_e": 160.0, "allow": api["A__allow"]}),
+                           ("acc_B", "B", {})):
+        got = accessibility(params, api[f"{name}__S"], int(api[f"{name}__n"]),
+                            max_w, device="cpu", **kw)
+        assert got.shape == (len(api[f"{name}__S"]), max_w + 1)
+        np.testing.assert_allclose(got.numpy(), api[f"{case}__pu"], rtol=1e-4,
+                                   atol=1e-8, err_msg=case)
 
 
 def test_dis_knife_edge_f64(params):

@@ -4,8 +4,9 @@ pipeline/batched.py::sweep_fingerprint and predict_batch's ckpt_dir).
 SweepCheckpoint.map_chunks with a counting stub: the JAX package's files
 (MANIFEST.json, chunk_%06d.npz) with the same contents; a resume after two
 missing chunks runs those two only and returns what an uninterrupted sweep
-returns; a corrupted manifest and a changed fingerprint start the sweep
-fresh.  predict_batch with a checkpoint directory (its chunks stubbed, so
+returns; a corrupted manifest raises json.JSONDecodeError and a changed
+fingerprint ValueError with the JAX package's message, and neither touches
+the directory's files.  predict_batch with a checkpoint directory (its chunks stubbed, so
 no DP or LP runs) writes the manifest and files that the JAX package wrote
 for the same call (tests/data/torch_port_golden_contrafold.json,
 "fingerprint", from tools/make_torch_contrafold_golden.py), and resumes
@@ -13,32 +14,47 @@ after a deleted chunk by running that chunk only; another energy table or
 chunk size gives another fingerprint.
 
 The same sweeps sharded over a mesh (parallel/mesh.py) of a gloo process
-group of 2 CPU ranks and of 1, each rank a child process (rows of every
-chunk stubbed, so no DP or LP runs): predict_batch's and zscore_batch's
-results equal the unsharded ones (z and zs within 1e-4, the card's gate:
-the mean and variance come from a float32 all-reduce), each rank ran only its
-contiguous share of each chunk padded to a multiple of the ranks, a
-sharded sweep resumes an unsharded one's chunks (and the other way), and
-sharded_mean_var equals numpy's mean and variance.
+group of 2 CPU ranks and of 1, each rank a child process that meets the
+others in a rendezvous file (rows of every chunk stubbed, so no DP or LP
+runs): predict_batch's and zscore_batch's results equal the unsharded ones
+(z and zs within 1e-4, the card's gate: the mean and variance come from a
+float32 all-reduce), each rank ran only its contiguous share of each chunk
+padded to a multiple of the ranks, a sharded sweep resumes an unsharded
+one's chunks (and the other way), sharded_mean_var equals numpy's mean and
+variance, and predict_device over the mesh (3 pairs, real DPs and 20 LP
+iterations) gives every rank the unsharded call's objectives and bounds
+(atol 1e-4: a share is another batch size).
+
+The result records (utils/records.py) round-trip through write_records
+and read_records field by field and line by line as the JAX package's;
+StageTimer counts the entries of each stage and its sync returns what it
+is given; profile_trace writes a trace of one CPU batch_fold at L=32.
 """
 
 import dataclasses
+import glob
 import json
 import os
 import shutil
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from ractip_tpu.utils.checkpoint import SweepCheckpoint as JaxCheckpoint
+from ractip_tpu.utils.records import PairRecord as JaxRecord
+from ractip_tpu.utils.records import read_records as jax_read_records
 from ractip_tpu_torch.evaluate.corpus import record
 from ractip_tpu_torch.params.tables import get_default_params
 from ractip_tpu_torch.pipeline import batched
 from ractip_tpu_torch.pipeline.options import Options
+from ractip_tpu_torch.ops.scan import batch_fold
+from ractip_tpu_torch.utils import (PairRecord, StageTimer, profile_trace,
+                                    read_records, write_records)
 from ractip_tpu_torch.utils.checkpoint import SweepCheckpoint
 
 torch.set_num_threads(2)
@@ -62,13 +78,22 @@ class Stub:
 
 
 # the rows of a chunk, stubbed: results made from the sequences, every row
-# it ran recorded in RAN
+# it ran recorded in RAN; and predict_device's seeded rows
 ROWS_STUB = textwrap.dedent("""
     import numpy as np
     RAN = []
 
     def h(s, m):      # differs between shuffles of one sequence
         return sum(i * ord(c) for i, c in enumerate(s)) % m
+
+    DEVICE_BUCKETS = (16, 16, 16, 32, 32)
+
+    def device_rows():      # S1, n1, S2, n2 of 3 seeded pairs at L = 16
+        rng = np.random.default_rng(7)
+        S = rng.integers(1, 5, size=(2, 3, 16))
+        n = np.array([[16, 13, 15], [14, 16, 12]])
+        S[np.arange(16)[None, None] >= n[:, :, None]] = 0
+        return S[0], n[0], S[1], n[1]
 
     def rows_stub(tt, params, pairs, *a):
         RAN.extend(tuple(p) for p in pairs)
@@ -117,6 +142,11 @@ RANK = ROWS_STUB + textwrap.dedent("""
     x = np.random.default_rng(3).normal(size=12).astype(np.float32)
     valid = (np.arange(12) < 11).astype(np.float32)
     got["mean_var"] = [float(t) for t in sharded_mean_var(x, mesh, valid)]
+    out_d = batched.predict_device(params, *device_rows(), Options()
+                                   .solver_cfg(), buckets=DEVICE_BUCKETS,
+                                   iters=20, mesh=mesh, device="cpu")
+    got["device"] = [out_d["obj"].tolist(), out_d["bound"].tolist(),
+                     list(out_d["prob"].xm.shape)]
     dist.destroy_process_group()
     with open(out, "w") as fh:
         json.dump(got, fh)
@@ -138,13 +168,15 @@ def _shares(starts_ends, world):
 def _sharded_matches(tmp_path, monkeypatch):
     """predict_batch / zscore_batch over 1 and 2 gloo ranks against the
     unsharded calls, the rows stubbed."""
-    from ractip_tpu_torch.entry import free_address
     from ractip_tpu_torch.pipeline.options import Options
     ns = {}
     exec(ROWS_STUB, ns)
+    params = get_default_params()
+    ref_d = batched.predict_device(params, *ns["device_rows"](), Options()
+                                   .solver_cfg(), buckets=ns["DEVICE_BUCKETS"],
+                                   iters=20, device="cpu")
     monkeypatch.setattr(batched, "_run_rows", ns["rows_stub"])
     RAN = ns["RAN"]
-    params = get_default_params()
     pairs = [(f"GGAC{'A' * k}GUCC", f"CG{'U' * (k % 4)}AG") for k in range(7)]
     kw = dict(chunk=3, want_energy=True, device="cpu")
     ref = batched.predict_batch(params, pairs, **kw)
@@ -162,7 +194,7 @@ def _sharded_matches(tmp_path, monkeypatch):
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     procs = {}
     for w in (1, 2):
-        address = free_address()
+        address = f"file://{tmp_path / f'rendezvous{w}'}"
         for r in range(w):
             out = tmp_path / f"rank{w}_{r}.json"
             procs[w, r] = (out, subprocess.Popen(
@@ -172,7 +204,7 @@ def _sharded_matches(tmp_path, monkeypatch):
                 text=True))
     try:
         for (w, r), (out, p) in procs.items():
-            _, err = p.communicate(timeout=120)
+            _, err = p.communicate(timeout=60)
             assert p.returncode == 0, (w, r, err[-3000:])
     finally:
         for _, p in procs.values():
@@ -199,6 +231,10 @@ def _sharded_matches(tmp_path, monkeypatch):
         x = np.random.default_rng(3).normal(size=12).astype(np.float32)[:11]
         np.testing.assert_allclose(got["mean_var"], [x.mean(), x.var()],
                                    rtol=1e-5, atol=1e-6)
+        obj, bound, xm_shape = got["device"]
+        np.testing.assert_allclose(obj, ref_d["obj"].numpy(), atol=1e-4)
+        np.testing.assert_allclose(bound, ref_d["bound"].numpy(), atol=1e-4)
+        assert xm_shape == list(ref_d["prob"].xm.shape)
     # the sharded sweep rewrote chunk 1: an unsharded resume runs only
     # the chunk deleted now
     os.unlink(dirs[2] / "chunk_000002.npz")
@@ -221,7 +257,51 @@ def _files(d):
     return sorted(os.listdir(d))
 
 
+def _records_timer_trace(tmp_path):
+    """The whole PairRecord through write_records / read_records, against
+    the JAX package's lines and reader; StageTimer's counts and sync; a
+    profile_trace of one CPU batch_fold, written in a few seconds."""
+    full = ("a", "b", "GGAC", "GUCC", "((((", "))))", -3.5, -3.25, 0.0,
+            dict(e1=-1.0, e2=-2.0, e3=-3.0, e1s=-0.5, e2s=-0.25),
+            (-1.5, -0.75), dict(fold=0.5), dict(f=0.9),
+            dict(note="x", k=[1, 2]))
+    recs = [PairRecord(*full), PairRecord(*full[:6], objective=1.0)]
+    path = tmp_path / "records.jsonl"
+    write_records(str(path), recs[:1])
+    write_records(str(path), recs[1:], append=True)
+    back = read_records(str(path))
+    assert back == recs and back[0].zscore == (-1.5, -0.75)
+    assert [r.to_json() for r in back] == [JaxRecord(*full).to_json(),
+                                           JaxRecord(*full[:6],
+                                                     objective=1.0).to_json()]
+    assert [dataclasses.asdict(r) for r in jax_read_records(str(path))] == [
+        dataclasses.asdict(r) for r in recs]
+    assert '"bound"' not in path.read_text().splitlines()[1]
+
+    timer = StageTimer()
+    x = dict(a=(torch.ones(2), [np.zeros(1), 3]))
+    for _ in range(2):
+        with timer("outer"):
+            with timer("inner"):
+                assert timer.sync(x) is x
+    assert timer.counts == {"outer": 2, "inner": 2}
+    assert set(timer.report()) == {"outer", "inner"}
+    assert repr(timer).startswith("StageTimer(outer=")
+
+    t0 = time.perf_counter()
+    S = np.random.default_rng(0).integers(1, 5, size=(1, 32))
+    with profile_trace(str(tmp_path / "trace")):
+        batch_fold(get_default_params(), S, np.array([30]), "cpu")
+    seconds = time.perf_counter() - t0
+    traces = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    assert len(traces) == 1 and seconds < 60, (traces, seconds)
+    with open(traces[0]) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "aten::einsum" in names
+
+
 def test_sweep_checkpoint_resume(tmp_path, monkeypatch):
+    _records_timer_trace(tmp_path)
     port, ref = tmp_path / "port", tmp_path / "jax"
     stub, jstub = Stub(), Stub()
     full = SweepCheckpoint(str(port), "fp1").map_chunks(4, stub)
@@ -245,15 +325,23 @@ def test_sweep_checkpoint_resume(tmp_path, monkeypatch):
     stub.ran = []
     SweepCheckpoint(str(port), "fp1").map_chunks(4, stub)
     assert stub.ran == []
-    # a corrupted manifest, then another fingerprint: a fresh sweep
+    # another fingerprint, then a corrupted manifest: both raise as the JAX
+    # package does, and the directory's files stay as they were
+    files = {f: (port / f).read_bytes() for f in _files(port)}
+    msgs = []
+    for cls in (SweepCheckpoint, JaxCheckpoint):
+        with pytest.raises(ValueError) as e:
+            cls(str(port), "fp2")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "different workload" in msgs[0]
     (port / "MANIFEST.json").write_text('{"fingerprint": "fp1", "chun')
-    _same(SweepCheckpoint(str(port), "fp1").map_chunks(4, stub), full)
-    assert stub.ran == [0, 1, 2, 3]
-    stub.ran = []
-    SweepCheckpoint(str(port), "fp2").map_chunks(4, stub)
-    assert stub.ran == [0, 1, 2, 3]
-    assert json.loads((port / "MANIFEST.json").read_text())[
-        "fingerprint"] == "fp2"
+    for cls in (SweepCheckpoint, JaxCheckpoint):
+        with pytest.raises(json.JSONDecodeError):
+            cls(str(port), "fp1")
+    (port / "MANIFEST.json").write_bytes(files["MANIFEST.json"])
+    assert {f: (port / f).read_bytes() for f in _files(port)} == files
+    SweepCheckpoint(str(port), "fp1").map_chunks(4, stub)
+    assert stub.ran == []
 
     # predict_batch: the JAX package's fingerprint and files for the same
     # call; a deleted chunk re-runs alone

@@ -5,7 +5,12 @@ the CPU, where the port's K6 wrapper runs its plain version.  Tolerances
 are the JAX package's own Pallas-vs-jnp gates (tests/test_duplex_pallas.py):
 the sweeps in the log domain to atol 5e-4 with identical support, pr atol
 2e-5, log_zd rtol 1e-5; the factors are exact in f32; float64 runs hold
-log_zd to rtol 1e-10 (tests/test_duplex.py)."""
+log_zd to rtol 1e-10 (tests/test_duplex.py).  The single-pair calls
+duplex and hybrid_probs are held at the float32 gates against the JAX
+package's duplex in tests/data/torch_port_golden_api.npz
+(tools/make_torch_api_golden.py)."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +123,19 @@ def test_batch_duplex_matches_vmap():
     np.testing.assert_allclose(got.pr.numpy(), np.asarray(ref.pr), atol=2e-5)
     np.testing.assert_allclose(got.log_zd.numpy(), np.asarray(ref.log_zd),
                                rtol=1e-5, atol=1e-4)
+
+    # the single-pair calls against the JAX package's (jnp sweep, float32)
+    api = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "data", "torch_port_golden_api.npz"))
+    pair = [api[k] for k in ("P__S1", "P__S2", "P__n1", "P__n2")]
+    one = td.duplex(params, *pair, device="cpu")
+    assert one.pr.shape == (32, 32) and one.log_zd.shape == ()
+    np.testing.assert_allclose(one.pr.numpy(), api["duplex_P__pr"], atol=2e-5)
+    np.testing.assert_allclose(float(one.log_zd),
+                               float(api["duplex_P__log_zd"]), rtol=1e-5)
+    np.testing.assert_allclose(td.hybrid_probs(params, *pair,
+                                               device="cpu").numpy(),
+                               api["hyb_P__pr"], atol=2e-5)
 
 
 def test_dis_dis_kissing_region():

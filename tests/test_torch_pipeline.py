@@ -6,11 +6,12 @@ the final objectives exact; tests/test_batched_pallas.py's protocol).
 zscore_batch with seeded decoys must give the same per-decoy energies
 (which are functions of the decoded brackets) and z, zs within 1e-3.
 
-The JAX side runs in one child process: at chunk=1 with energies on, a
-single compiled JAX pipeline serves the z-score's real pair, its decoys
-and both predicted pairs (one ~90 s CPU compile instead of two), and the
-worker that runs this test keeps the JAX compile history the JAX tests
-see (tests/conftest.py describes the jaxlib compile-path crash).
+The JAX side is read from tests/data/torch_port_golden_pipeline.npz
+(tools/make_torch_test_golden.py: the JAX zscore_batch and predict_batch
+at chunk=1, and the JAX predict_device on the predicted pairs, on the
+inputs stored beside them); the test first asserts that its own seeded
+inputs equal the stored ones.  predict_device's objectives and LP bounds
+must agree to atol 1e-3 (tests/test_torch_solver.py's PDHG tolerance).
 The duplex model (use_pf_duplex) is held against the JAX golden file
 tests/data/torch_port_golden_duplex.json (tools/make_torch_duplex_golden.py).
 The port never imports jax nor the JAX package: a subprocess runs the CPU
@@ -29,6 +30,7 @@ import torch
 from ractip_tpu.io.fasta import Fasta
 from ractip_tpu.params.tables import get_default_params
 from ractip_tpu_torch.evaluate.corpus import record
+from ractip_tpu_torch.ops.seq import encode
 from ractip_tpu_torch.pipeline import batched as tb
 from ractip_tpu_torch.pipeline.options import Options
 
@@ -39,31 +41,7 @@ ITERS = 400
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DUPLEX = os.path.join(ROOT, "tests", "data",
                              "torch_port_golden_duplex.json")
-
-_JAX_REFERENCE = textwrap.dedent("""
-    import json, sys
-    import numpy as np
-    from ractip_tpu.io.fasta import Fasta
-    from ractip_tpu.params.tables import get_default_params
-    from ractip_tpu.pipeline import batched as jb
-    from ractip_tpu.pipeline.ractip import Options
-    a = json.loads(sys.argv[1])
-    params = get_default_params()
-    kw = dict(chunk=1, iters=a["iters"], buckets=tuple(a["buckets"]))
-    z, zs, st = jb.zscore_batch(
-        Fasta("s1", a["zpair"][0]), Fasta("s2", a["zpair"][1]),
-        Options(zscore=12, num_shuffling=a["decoys"], seed=a["seed"]),
-        params, **kw)
-    r = jb.predict_batch(params, [tuple(p) for p in a["pairs"]], Options(),
-                         want_energy=True, **kw)
-    print(json.dumps(dict(
-        z=float(z), zs=float(zs), brackets=list(st["brackets"]),
-        decoy_e=np.asarray(st["decoy_e"]).tolist(),
-        decoy_es=np.asarray(st["decoy_es"]).tolist(),
-        r1=list(r.r1), r2=list(r.r2),
-        objective=np.asarray(r.objective).tolist())))
-""")
-
+GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_pipeline.npz")
 
 def _pairs(seed, k=2):
     rng = np.random.default_rng(seed)
@@ -78,15 +56,15 @@ def _pairs(seed, k=2):
 def test_predict_and_zscore_batch_match_jax():
     pairs, zpair = _pairs(0), _pairs(4, 1)[0]
     decoys, seed = 8, 3
-    arg = json.dumps(dict(pairs=pairs, zpair=zpair, decoys=decoys, seed=seed,
-                          iters=ITERS, buckets=BUCKETS))
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "JAX_ENABLE_X64": "1",
-           "PYTHONPATH": ROOT}
-    proc = subprocess.run([sys.executable, "-c", _JAX_REFERENCE, arg],
-                          capture_output=True, text=True, env=env, cwd=ROOT,
-                          timeout=900)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = dict(np.load(GOLDEN))
+    assert [tuple(p) for p in ref["pairs"].tolist()] == pairs
+    assert tuple(ref["zpair"].tolist()) == zpair
+    assert (int(ref["decoys"]), int(ref["seed"]), int(ref["iters"])) == (
+        decoys, seed, ITERS)
+    assert tuple(ref["buckets"].tolist()) == BUCKETS
+    ref["brackets"] = ref["brackets"].tolist()
+    for k in ("r1", "r2"):
+        ref[k] = ref[k].tolist()
 
     params = get_default_params()
     got = tb.predict_batch(params, pairs, Options(), iters=ITERS,
@@ -104,6 +82,17 @@ def test_predict_and_zscore_batch_match_jax():
     np.testing.assert_allclose(st["decoy_e"], ref["decoy_e"], atol=1e-9)
     np.testing.assert_allclose(st["decoy_es"], ref["decoy_es"], atol=1e-9)
     assert abs(z - ref["z"]) < 1e-3 and abs(zs - ref["zs"]) < 1e-3
+
+    S1, S2 = (np.stack([encode(p[k], 32) for p in pairs]) for k in (0, 1))
+    n1, n2 = (np.array([len(p[k]) for p in pairs], np.int32) for k in (0, 1))
+    for k, a in (("S1", S1), ("S2", S2), ("n1", n1), ("n2", n2)):
+        np.testing.assert_array_equal(a, ref[f"device_{k}"], err_msg=k)
+    out = tb.predict_device(params, S1, n1, S2, n2, Options().solver_cfg(),
+                            buckets=BUCKETS, iters=ITERS, device="cpu")
+    np.testing.assert_allclose(out["obj"].numpy(), ref["device_obj"],
+                               atol=1e-3)
+    np.testing.assert_allclose(out["bound"].numpy(), ref["device_bound"],
+                               atol=1e-3)
 
 
 def test_duplex_slice_matches_golden():
@@ -162,6 +151,18 @@ def test_port_never_imports_jax():
         from ractip_tpu_torch.parallel.distributed import init_distributed
         from ractip_tpu_torch.parallel.mesh import sharded_mean_var
         from ractip_tpu_torch.entry import dryrun_multichip, entry
+        import ractip_tpu_torch.parallel
+        import ractip_tpu_torch.solver
+        import ractip_tpu_torch.utils
+        from ractip_tpu_torch import __version__
+        from ractip_tpu_torch.ops.mccaskill import (base_pair_probs, fold,
+                                                    log_partition)
+        from ractip_tpu_torch.ops.accessibility import accessibility
+        from ractip_tpu_torch.ops.cofold import cofold, cofold_hybrid_probs
+        from ractip_tpu_torch.ops.duplex import duplex, hybrid_probs
+        from ractip_tpu_torch.pipeline.batched import predict_device
+        from ractip_tpu_torch.utils.records import read_records
+        from ractip_tpu_torch.utils.timing import profile_trace
         import runpy
         pair = [("GGGAAACCCAGCUAGC", "GCUAGCUGGGUUUCCC")]
         for opts in (Options(), Options(use_pf_duplex=True)):
@@ -190,6 +191,14 @@ def test_port_never_imports_jax():
         assert not init_distributed()
         assert callable(solve_joint) and callable(sharded_mean_var)
         assert callable(dryrun_multichip)
+        assert __version__ == "0.1.0"
+        assert ractip_tpu_torch.parallel.SCENARIO_AXES == ("pairs",
+                                                         "replicates")
+        assert all(callable(f) for f in (
+            base_pair_probs, fold, log_partition, accessibility, cofold,
+            cofold_hybrid_probs, duplex, hybrid_probs, predict_device,
+            read_records, profile_trace, ractip_tpu_torch.solver.pdhg_solve,
+            ractip_tpu_torch.utils.StageTimer.sync))
         sys.argv = ["ractip_tpu_torch", "--help"]
         try:
             runpy.run_module("ractip_tpu_torch", run_name="__main__")
@@ -236,6 +245,26 @@ def test_device_cuda_without_gpu_raises():
                  lambda: cf_viterbi([1, 2, 3, 4], 4),
                  lambda: solve_joint(prob, SolverConfig(min_w=0, max_w=0),
                                      32, 32),
-                 lambda: entry()):
+                 lambda: entry()) + _single_calls():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def _single_calls():
+    """Every single-call function and predict_device at its default
+    device."""
+    from ractip_tpu_torch.ops.accessibility import accessibility
+    from ractip_tpu_torch.ops.cofold import cofold, cofold_hybrid_probs
+    from ractip_tpu_torch.ops.duplex import duplex, hybrid_probs
+    from ractip_tpu_torch.ops.mccaskill import (base_pair_probs, fold,
+                                                log_partition)
+    from ractip_tpu_torch.params.tables import get_default_params as tparams
+    p, S = tparams(), encode("GGGAAACCC", 32)
+    one = [lambda f=f: f(p, S, 9) for f in (fold, log_partition,
+                                            base_pair_probs)]
+    two = [lambda f=f: f(p, S, S, 9, 9) for f in (cofold, cofold_hybrid_probs,
+                                                  duplex, hybrid_probs)]
+    z = np.zeros((1, 32), np.int64)
+    return tuple(one + two + [
+        lambda: accessibility(p, S, 9, 15),
+        lambda: tb.predict_device(p, z, [9], z, [9], Options().solver_cfg())])

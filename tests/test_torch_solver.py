@@ -17,16 +17,16 @@ batched path's exact fallback under RACTIP_TPU_EXACT_BACKEND=bnb; the
 variable selects the backend as the JAX package's does (auto: HiGHS where
 scipy imports; another value raises its ValueError).
 
-The JAX half of every test runs in one child process (JAX on the CPU with
-x64, as tests/conftest.py sets it up), so the compile history of the
-worker that runs these tests cannot reach the jaxlib compile-path crash
-that tests/conftest.py describes; tests/test_torch_fold.py does the same."""
+The JAX half of every test is read from
+tests/data/torch_port_golden_solver.npz (tools/make_torch_test_golden.py:
+the JAX package on the same posteriors, stored beside them); the fixture
+first asserts that the seeded sequences equal the stored ones and the
+posteriors the stored ones to rtol 1e-6 (the port's own CPU slice made
+both).
+"""
 
 import os
 import re
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -48,12 +48,15 @@ torch.set_num_threads(2)
 
 L = 32
 B = 2
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "torch_port_golden_solver.npz")
 BUCKETS = (32, 32, 32, 256, 256)
 
 
 @pytest.fixture(scope="module")
-def posteriors():
+def seeded():
+    """The seeded sequences S1, S2 and the port's CPU posteriors bpp1,
+    bpp2, hp, pu1, pu2, n1, n2 of them."""
     rng = np.random.default_rng(5)
     n1 = rng.integers(20, L + 1, B)
     n2 = rng.integers(20, L + 1, B)
@@ -69,62 +72,29 @@ def posteriors():
     pu1 = unpaired_probs(tt, r1["ff"], r1["ins"], r1["ob"], n1t, 15, r1["sig"])
     pu2 = unpaired_probs(tt, r2["ff"], r2["ins"], r2["ob"], n2t, 15, r2["sig"])
     hp = batch_cofold(tt, S1, S2, n1, n2, "cpu")["hp"]
-    return [t.numpy().astype(np.float32) for t in
-            (r1["bpp"], r2["bpp"], hp, pu1, pu2)] + [n1.astype(np.int32),
-                                                     n2.astype(np.int32)]
-
-
-_JAX_REFERENCE = textwrap.dedent("""
-    import sys
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from ractip_tpu.solver import device as jdev
-    from ractip_tpu.solver import joint_lp as jlp
-    from ractip_tpu.solver import milp as jmilp
-    from ractip_tpu.solver.candidates import JointProblem, SolverConfig
-    src, dst, L, iters = sys.argv[1:]
-    L, iters = int(L), int(iters)
-    a = np.load(src)
-    post = [a[f"post{k}"] for k in range(7)]
-    buckets = tuple(int(b) for b in a["buckets"])
-    jcfg = SolverConfig()
-    jp = jax.vmap(lambda a, b, h, p1, p2, m1, m2: jdev.build_problem_device(
-        a, b, h, p1, p2, m1, m2, jcfg, buckets))(*[jnp.asarray(x)
-                                                   for x in post])
-
-    def one(p):
-        uj, _, bj = jlp.pdhg_solve(p, jcfg, L, L, iters=iters)
-        return jlp.primal_objective(p, uj), bj
-
-    jobj, jbound = jax.vmap(one)(jp)
-    cert = []
-    for b in range(len(post[5])):
-        q = JointProblem(*[np.asarray(t)[b] for t in jp])
-        _, obj, bound, _ = jmilp.certify_or_solve(q, jcfg, L, L, -1.0, 1e-4)
-        cert.append((obj, bound))
-    np.savez(dst, obj=np.asarray(jobj), bound=np.asarray(jbound),
-             cert=np.asarray(cert, np.float64),
-             **{f"p_{f}": np.asarray(getattr(jp, f)) for f in jp._fields})
-""")
+    return [S1, S2] + [t.numpy().astype(np.float32) for t in
+                       (r1["bpp"], r2["bpp"], hp, pu1, pu2)] + [
+        n1.astype(np.int32), n2.astype(np.int32)]
 
 
 @pytest.fixture(scope="module")
-def jax_ref(posteriors, tmp_path_factory):
+def jax_ref(seeded):
     """The JAX package's problems (p_<field>), PDHG objective and bound at
-    400 iterations, and certify (objective, bound) of each instance, from a
-    child process."""
-    tmp = tmp_path_factory.mktemp("jax_solver")
-    src, dst = tmp / "in.npz", tmp / "out.npz"
-    np.savez(src, buckets=np.asarray(BUCKETS),
-             **{f"post{k}": a for k, a in enumerate(posteriors)})
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "JAX_ENABLE_X64": "1",
-           "PYTHONPATH": ROOT}
-    proc = subprocess.run([sys.executable, "-c", _JAX_REFERENCE, str(src),
-                           str(dst), str(L), "400"], capture_output=True,
-                          text=True, env=env, cwd=ROOT, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(dst))
+    400 iterations, and certify (objective, bound) of each instance, from
+    the golden file, once its inputs are seen to equal this run's."""
+    gold = dict(np.load(GOLDEN))
+    np.testing.assert_array_equal(seeded[0], gold["S1"])
+    np.testing.assert_array_equal(seeded[1], gold["S2"])
+    np.testing.assert_array_equal(gold["buckets"], BUCKETS)
+    assert int(gold["iters"]) == 400
+    for k, a in enumerate(seeded[2:]):
+        np.testing.assert_allclose(a, gold[f"post{k}"], rtol=1e-6, atol=0)
+    return gold
+
+
+@pytest.fixture(scope="module")
+def posteriors(seeded):
+    return seeded[2:]
 
 
 def _problem(post, cfg=SolverConfig()):
